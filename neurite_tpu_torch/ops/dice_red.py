@@ -1,0 +1,92 @@
+"""
+One-pass Dice sums: per-label sum(x*y), sum(x^2), sum(y^2) over the voxels.
+
+Counterpart of `neurite_tpu/ops/dice_red.py`. For CUDA tensors the forward is
+the hand-written kernel K3 of `csrc/dice_red.cu`; the backward is plain torch,
+as in the JAX package (`dice_red.py:80-84`).
+"""
+
+import torch
+
+from neurite_tpu_torch.ops import _build
+
+_IMPLS = {'auto': 'auto', 'kernel': 'kernel', 'plain': 'plain',
+          'pallas': 'kernel', 'jnp': 'plain'}  # JAX's names are aliases
+
+
+def _dice_sums_plain(x, y):
+    """(sum_v x*y, sum_v x*x, sum_v y*y) of [bs, V, L] -> 3 x [bs, L]."""
+    return (x * y).sum(1), (x * x).sum(1), (y * y).sum(1)
+
+
+def _launch_shape(n_vox, nb_labels):
+    """(threads, blocks per batch row) of K3's first pass: a block holds a
+    whole number of label groups, and each thread sums ~16 elements."""
+    threads = nb_labels * max(1, 256 // nb_labels)
+    nblk = max(1, min(1024, -(-n_vox * nb_labels // (threads * 16))))
+    return threads, nblk
+
+
+def dice_sums_cuda(x, y):
+    """K3: the three sums of [bs, V, L] float32 contiguous CUDA tensors."""
+    if not (x.is_cuda and y.is_cuda):
+        raise ValueError('x and y must be CUDA tensors')
+    if x.shape != y.shape or x.ndim != 3 or x.device != y.device:
+        raise ValueError(f'x and y must be [bs, V, L] on one device, got '
+                         f'{tuple(x.shape)} and {tuple(y.shape)}')
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError('x and y must be float32')
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError('x and y must be contiguous')
+    bs, n_vox, nb_labels = x.shape
+    if nb_labels > 1024 or bs > 65535:
+        raise ValueError(f'the Dice kernel takes L <= 1024 and bs <= 65535, '
+                         f'got {tuple(x.shape)}')
+    threads, nblk = _launch_shape(n_vox, nb_labels)
+    partial = torch.empty((bs, nblk, 3, nb_labels), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty((3, bs, nb_labels), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        lib.call('neurite_dice_sums_f32', x.data_ptr(), y.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), bs, n_vox, nb_labels,
+                 threads, nblk, _build.stream_of(x))
+    _build.launches['dice_sums'] += 1
+    return out[0], out[1], out[2]
+
+
+class DiceSums(torch.autograd.Function):
+    """K3 forward; backward g_xy*y + 2*g_xx*x (and symmetric) in plain torch."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return dice_sums_cuda(x, y)
+
+    @staticmethod
+    def backward(ctx, g_xy, g_xx, g_yy):
+        x, y = ctx.saved_tensors
+        g_xy, g_xx, g_yy = (g[:, None, :] for g in (g_xy, g_xx, g_yy))
+        return g_xy * y + 2. * g_xx * x, g_xy * x + 2. * g_yy * y
+
+
+def dice_sums(x, y, impl='auto'):
+    """
+    One-pass Dice partial sums.
+
+    Args:
+        x, y: [bs, V, L] probability maps (cast to float32).
+        impl: 'auto' or 'kernel' (K3 for CUDA tensors, the plain version for
+            CPU tensors), or 'plain'. JAX's 'pallas' and 'jnp' are aliases of
+            'kernel' and 'plain'.
+
+    Returns:
+        (sum_xy, sum_xx, sum_yy), each [bs, L] float32.
+    """
+    if impl not in _IMPLS:
+        raise ValueError(f'impl must be one of {sorted(_IMPLS)}, got {impl!r}')
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    if _IMPLS[impl] == 'plain' or not x.is_cuda:
+        return _dice_sums_plain(x, y)
+    return DiceSums.apply(x.contiguous(), y.contiguous())
