@@ -3,11 +3,12 @@ Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Drives the port's main path, the flagship 3-D UNet training step
-(nb_features=16, nb_levels=4, feat_mult=2, nb_conv_per_level=2, conv_size=3,
-nb_labels=4, 128^3, batch 1, SoftDice, Adam 1e-3), through its public entry
-points, and checks every hand-written kernel on that path against its plain
-PyTorch version. Phases:
+Drives the port's two paths through their public entry points: the
+flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
+nb_conv_per_level=2, conv_size=3, nb_labels=4, 128^3, batch 1, SoftDice,
+Adam 1e-3) and the config #5 synthesis -> UNet training step; and checks
+every hand-written kernel on them against its plain PyTorch version, each
+path's launch counts set to 0 just before it and read just after. Phases:
 
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds the kernels (`neurite_tpu_torch/ops/csrc`);
@@ -21,7 +22,38 @@ PyTorch version. Phases:
      rtol 1e-5, each gradient within 1e-4 of its largest magnitude (the Dice
      sums' order is the only difference);
   6. 10 bfloat16 training steps: finite losses, launch counts of K1, K2 and
-     K3 exactly those of 10 steps, median step time, vol/s, peak memory.
+     K3 exactly those of 10 steps, median step time, vol/s, peak memory; a
+     profile of 3 more steps;
+  7. interpolation: K4 vs the plain gather chain at the synthesis path's
+     shapes ([1, 64^3, 3] linear under a smooth +-8 voxel field and under
+     the same field shifted by 20 voxels; [1, 128^3, 1] nearest with fill 0
+     at half-integer ties): linear within 1e-5, nearest bit-equal; K4's
+     gradient vs plain autograd at 32^3;
+  8. blur: K6 vs the plain per-axis convs at [3, 64^3] with 41 taps and
+     [1, 128^3] with 165 and 7 taps: forward within 1e-5 of max|y|, dx
+     within 1e-5 and the tap gradients within 1e-4 of their largest
+     magnitude (sums over up to 2M products in other orders);
+  9. config #5 (bench.py's synth_rate): `labels_to_image_new(labels_in=
+     range(16), out_shape=(128,)*3, one_hot=True)` feeding the bf16 UNet
+     (nb_labels=16) for 10 steps of synthesis then train step; finite
+     losses, one-hot maps, launch counts of K1-K4 and K6 exactly those of
+     10 steps; synthesis ms, step ms, vol/s, peak memory; no host sync in
+     the synthesis (CUDA's sync debug mode); the synthesis through the
+     kernels against the plain CPU path on the same raw draws at 64^3
+     (every K4 and K6 call of the path: the Perlin blurs, the squarings,
+     the label warp and the image blur); profiles
+     of 3 synthesis calls and of 3 steps (device time by kernel, idle
+     share).
+
+A kernel's, plain version's or library call's ms is its device time: the
+durations of the device events torch.profiler records over 20 calls,
+summed, over 20 (the host's launch time is not in it; "one kernel call"
+lines print the CUDA-event time of a call, which is). Each kernel's bound
+is the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over the H100's peak for their type
+(float32 outside the tensor cores: 67 TFLOP/s); its `library_ms` is one
+PyTorch call computing the same function, timed here and used nowhere in
+the port.
 
 Prints one line per check, then a JSON line of the kernels, and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
@@ -29,6 +61,7 @@ machine without a CUDA device.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -39,13 +72,20 @@ import torch
 
 import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
-from neurite_tpu_torch.ops import _build, dice_red, pool, pool_cuda
+from neurite_tpu_torch.ops import (_build, blur, dice_red, pool, pool_cuda,
+                                   warp_cuda)
+from neurite_tpu_torch.utils import core
 
 VOL = 128
 NB_LABELS = 4
 POOL_SHAPES = [(1, 128, 128, 128, 16), (1, 64, 64, 64, 32), (1, 32, 32, 32, 64)]
 TRAIN_STEPS = 10
 WARMUP_STEPS = 3
+SYNTH_LABELS = 16
+CHECK_VOL = 64      # the synthesis check against the plain CPU path
+PROFILE_STEPS = 3
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 KERNELS = {
     'pool2_fwd': ('neurite_tpu_torch/ops/csrc/pool.cu',
@@ -54,6 +94,10 @@ KERNELS = {
                   'neurite_tpu/ops/pool_pallas.py:199'),
     'dice_sums': ('neurite_tpu_torch/ops/csrc/dice_red.cu',
                   'neurite_tpu/ops/dice_red.py:60'),
+    'interpn': ('neurite_tpu_torch/ops/csrc/interpn.cu',
+                'neurite_tpu/ops/pallas_warp.py:114 and :302'),
+    'blur': ('neurite_tpu_torch/ops/csrc/blur.cu',
+             'neurite_tpu/ops/blur.py:118'),
 }
 
 
@@ -69,8 +113,41 @@ class Checks:
             self.failed.append(name)
 
 
+def device_events(prof):
+    """(device ms, count, name) of each kernel, copy and set that a
+    torch.profiler run recorded, summed by name. Annotations (such as
+    `Optimizer.step#Adam.step`) span kernels already counted: left out."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, 'device_type', '')).endswith('CUDA') \
+                or getattr(e, 'is_user_annotation', False) \
+                or re.fullmatch(r'[\w.]+#[\w.]+', e.key):
+            continue
+        dev = getattr(e, 'self_device_time_total',
+                      getattr(e, 'self_cuda_time_total', 0))
+        if dev > 0:
+            rows.append((dev / 1e3, e.count, e.key))
+    return rows
+
+
 def time_ms(fn, reps=20, warmup=3):
-    """Median device time of fn() in ms, by CUDA events around each call."""
+    """Device time of one fn() call in ms: the durations of the device
+    events torch.profiler records over `reps` calls, summed, over reps.
+    The host's time between launches is not in it (see call_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _, _ in device_events(prof)) / reps
+
+
+def call_ms(fn, reps=20, warmup=3):
+    """Median ms of one fn() call by CUDA events around it: the device time,
+    or the host's launch time where that is longer."""
     for _ in range(warmup):
         fn()
     times = []
@@ -83,6 +160,24 @@ def time_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound_ms(nbytes, flops=0.):
+    """(least ms, 'bytes' or 'operations'): the larger of bytes over the
+    memory rate and float32 operations over the non-tensor-core peak."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_FLOP_PER_S
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def add_bound(r, nbytes, flops=0.):
+    """Add one call's bound to kernel record r (a step's calls sum); its
+    `bound_by` is the kind that sets the larger part of the sum."""
+    t, by = bound_ms(nbytes, flops)
+    r['bound_ms'] += t
+    share = r.setdefault('_bound_share', {})
+    share[by] = share.get(by, 0.) + t
+    r['bound_by'] = max(share, key=share.get)
 
 
 def bit_equal(a, b):
@@ -160,6 +255,20 @@ def phase_pool(checks, res):
                  'pool2_bwd': (time_ms(lambda: pool_cuda.pool2_bwd(x, g)),
                                time_ms(lambda: pool._max_pool_tiled_bwd(
                                    x, yp, g, w)))}
+            # yardsticks on the channels-first view (a view, no copy)
+            xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+            _, idx = torch.nn.functional.max_pool3d(xc, 2, return_indices=True)
+            lib = {'pool2_fwd': time_ms(
+                       lambda: torch.nn.functional.max_pool3d(xc, 2)),
+                   'pool2_bwd': time_ms(
+                       lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                           gc, xc, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1],
+                           False, idx))}
+            calls = {'pool2_fwd': call_ms(lambda: pool_cuda.pool2_fwd(x)),
+                     'pool2_bwd': call_ms(lambda: pool_cuda.pool2_bwd(x, g))}
+            n, isz = x.numel(), x.element_size()
+            nbytes = {'pool2_fwd': (n + n // 8) * isz,
+                      'pool2_bwd': (2 * n + n // 8) * isz}
             for name, (k_ms, p_ms) in t.items():
                 err = max_abs_err(yk, yp) if name == 'pool2_fwd' \
                     else max_abs_err(dk, dp)
@@ -168,8 +277,12 @@ def phase_pool(checks, res):
                 if dtype == torch.bfloat16:  # the training step's type
                     r['ms'] += k_ms
                     r['plain_ms'] += p_ms
+                    r['library_ms'] += lib[name]
+                    add_bound(r, nbytes[name])
                 print(f'  {name} {tag}: kernel {k_ms:.4f} ms, plain '
-                      f'{p_ms:.4f} ms', flush=True)
+                      f'{p_ms:.4f} ms, library {lib[name]:.4f} ms, bound '
+                      f'{bound_ms(nbytes[name])[0]:.4f} ms; one kernel call '
+                      f'{calls[name]:.4f} ms', flush=True)
 
 
 def phase_dice(checks, res):
@@ -189,9 +302,14 @@ def phase_dice(checks, res):
                  f'max rel err {rel:.3g} (rtol 1e-5)')
     k_ms = time_ms(lambda: dice_red.dice_sums_cuda(x, y))
     p_ms = time_ms(lambda: dice_red._dice_sums_plain(x, y))
-    res['dice_sums'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-    print(f'  dice_sums {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms',
-          flush=True)
+    res['dice_sums'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                            library_ms=None)
+    # x and y read once, three [1, L] sums written; a multiply-add per sum
+    add_bound(res['dice_sums'], (2 * x.numel() + 3 * NB_LABELS) * 4,
+              6 * x.numel())
+    c_ms = call_ms(lambda: dice_red.dice_sums_cuda(x, y))
+    print(f'  dice_sums {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; '
+          f'one kernel call {c_ms:.4f} ms', flush=True)
 
 
 def flagship_inputs():
@@ -294,13 +412,388 @@ def phase_train(checks, res, x, y):
           + ' '.join(f'{1e3 * t:.2f}' for t in times))
     print(f'  vol/s {1e3 / step_ms:.3f}; peak memory '
           f'{peak} B ({peak / 2 ** 30:.3f} GiB)', flush=True)
+    try:
+        report_profile('flagship step',
+                       lambda i: step(state, (x, y), gen), TRAIN_STEPS)
+    except Exception as e:  # noqa: BLE001  (a reading, not a check)
+        print(f'  flagship profile not measured: {type(e).__name__}: {e}')
+
+
+def smooth_field(shape, amp, gen):
+    """A smooth [1, *shape, 3] displacement field with max |value| = amp:
+    normal noise at 1/8 resolution, upsampled trilinearly."""
+    low = torch.randn((1, 3, *[max(s // 8, 2) for s in shape]), generator=gen,
+                      device='cuda')
+    f = torch.nn.functional.interpolate(low, size=shape, mode='trilinear',
+                                        align_corners=True)
+    f = f.permute(0, 2, 3, 4, 1).contiguous()
+    return f * (amp / f.abs().max())
+
+
+def grid_sample_call(vol, loc, method):
+    """F.grid_sample on `vol` [B, D, H, W, C] at voxel coordinates `loc`
+    [B, *out, 3]: the layout permutation is made here, outside the timed
+    call it returns."""
+    shape = torch.tensor(vol.shape[1:4], dtype=torch.float32, device='cuda')
+    g = (loc / (shape - 1) * 2 - 1).flip(-1).contiguous()    # (x, y, z)
+    v = vol.permute(0, 4, 1, 2, 3).contiguous()
+    mode = 'bilinear' if method == 'linear' else 'nearest'
+    return lambda: torch.nn.functional.grid_sample(
+        v, g, mode=mode, padding_mode='border', align_corners=True)
+
+
+def phase_interpn(checks, res):
+    print('== 7. interpolation K4 vs plain', flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    r = res['interpn']
+    v64 = (64,) * 3
+    field = smooth_field(v64, 8., gen)
+    grid = core.grid_points(v64, 'cuda')[None]
+    vol3 = torch.randn((1, *v64, 3), generator=gen, device='cuda')
+    v128 = (VOL,) * 3
+    lab = torch.randint(0, SYNTH_LABELS, (1, *v128, 1), generator=gen,
+                        device='cuda').float()
+    # every point on a half-integer or integer: the ties of round-half-even
+    loc128 = torch.round(2 * (core.grid_points(v128, 'cuda')[None]
+                              + smooth_field(v128, 8., gen))) / 2
+    cases = [  # (name, vol, loc, method, fill, calls per synthesis step)
+        ('64^3 C=3 linear, +-8 field (v2 regime)', vol3, grid + field,
+         'linear', None, 5),
+        ('64^3 C=3 linear, +-8 field + 20 shift (v1 regime)', vol3,
+         grid + field + 20., 'linear', None, 0),
+        ('128^3 C=1 nearest, fill 0, half-integer ties', lab, loc128,
+         'nearest', 0., 1),
+    ]
+    for name, vol, loc, method, fill, per_step in cases:
+        k = warp_cuda.interpn3d(vol, loc, method, fill)
+        p = core.interpn_plain(vol, loc, method, fill, batched=True)
+        torch.cuda.synchronize()
+        err = max_abs_err(k, p)
+        if method == 'nearest':
+            ok = bit_equal(k, p)
+            filled = float((k == 0).float().mean())
+            checks.check(f'interpn {name}', ok,
+                         f'bit-equal {ok}; filled share {filled:.4f}')
+        else:
+            ok = err <= 1e-5
+            checks.check(f'interpn {name}', ok,
+                         f'max abs err {err:.3g} (atol 1e-5); bit-equal '
+                         f'{bit_equal(k, p)}')
+        k_ms = time_ms(lambda: warp_cuda.interpn3d(vol, loc, method, fill))
+        p_ms = time_ms(lambda: core.interpn_plain(vol, loc, method, fill,
+                                                  batched=True))
+        l_ms = time_ms(grid_sample_call(vol, loc, method))
+        nbytes = (vol.numel() + loc.numel() + k.numel()) * 4
+        b_ms, _ = bound_ms(nbytes)
+        c_ms = call_ms(lambda: warp_cuda.interpn3d(vol, loc, method, fill))
+        print(f'  interpn {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
+              f'grid_sample {l_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); one '
+              f'kernel call {c_ms:.4f} ms', flush=True)
+        r['max_abs_err'] = max(r['max_abs_err'], err)
+        for _ in range(per_step):   # a synthesis step's calls sum
+            r['ms'] += k_ms
+            r['plain_ms'] += p_ms
+            r['library_ms'] += l_ms
+            add_bound(r, nbytes)
+
+    # the gradient: K4's autograd function against plain autograd, 32^3
+    v32 = (32,) * 3
+    vol = torch.randn((1, *v32, 3), generator=gen, device='cuda')
+    loc = core.grid_points(v32, 'cuda')[None] + smooth_field(v32, 4., gen)
+    g = torch.randn((1, *v32, 3), generator=gen, device='cuda')
+    grads = []
+    for fn in (lambda v, lc: warp_cuda.interpn3d(v, lc, 'linear', None),
+               lambda v, lc: core.interpn_plain(v, lc, 'linear', None,
+                                                batched=True)):
+        v, lc = vol.clone().requires_grad_(), loc.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(v, lc), (v, lc), g))
+    torch.cuda.synchronize()
+    errs = [max_abs_err(a, b) for a, b in zip(*grads)]
+    checks.check('interpn gradient 32^3 (dvol, dloc)', max(errs) <= 1e-5,
+                 f'max abs err {errs[0]:.3g}, {errs[1]:.3g} (atol 1e-5)')
+
+
+def blur_flops(shape, widths):
+    """Operations a separable SAME blur of x [N, *spatial] needs: a
+    multiply-add for each tap that falls inside its axis (taps in the zero
+    padding need no work; a 165-tap window on a 128-voxel axis keeps about
+    112 of its taps per output)."""
+    n, *sp = shape
+    flops = 0
+    for a, width in enumerate(widths):
+        r, i = width // 2, np.arange(sp[a])
+        taps = int((np.minimum(i + r, sp[a] - 1) - np.maximum(i - r, 0)
+                    + 1).sum())
+        flops += 2 * n * (int(np.prod(sp)) // sp[a]) * taps
+    return flops
+
+
+def phase_blur(checks, res):
+    print('== 8. blur K6 vs plain', flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    r = res['blur']
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # the plain convs in float32
+    try:
+        cases = [  # (shape, sigma, taps, calls per synthesis step)
+            ((3, 64, 64, 64), 16 / 2.355, 41, 2),
+            ((1, VOL, VOL, VOL), 64 / 2.355, 165, 1),
+            ((1, VOL, VOL, VOL), 1., 7, 1),
+        ]
+        for shape, sigma, width, per_step in cases:
+            x = torch.randn(shape, generator=gen, device='cuda')
+            k1 = core.gaussian_kernel(sigma, windowsize=width, device='cuda')
+            ks = [k1, k1, k1]
+            yk = blur.blur3d(x, ks)
+            yp = blur._plain(x, ks)
+            torch.cuda.synchronize()
+            err = max_abs_err(yk, yp)
+            tol = 1e-5 * float(yp.abs().max())
+            tag = f'{list(shape)} {width} taps'
+            checks.check(f'blur fwd {tag}', err <= tol,
+                         f'max abs err {err:.3g} (limit {tol:.3g})')
+
+            # backward: dx by K6 with flipped taps, taps by plain torch,
+            # against autograd through the plain convs
+            g = torch.randn(shape, generator=gen, device='cuda')
+            grads = []
+            for fn in (blur.blur3d, blur._plain):
+                xi = x.clone().requires_grad_()
+                ki = [k1.clone().requires_grad_() for _ in range(3)]
+                grads.append(torch.autograd.grad(fn(xi, ki), [xi, *ki], g))
+            torch.cuda.synchronize()
+            (dxk, *dkk), (dxp, *dkp) = grads
+            ex = max_abs_err(dxk, dxp) / float(dxp.abs().max())
+            ek = max(max_abs_err(a, b) / float(b.abs().max())
+                     for a, b in zip(dkk, dkp))
+            checks.check(f'blur bwd {tag}', ex <= 1e-5 and ek <= 1e-4,
+                         f'dx {ex:.3g} (limit 1e-5), taps {ek:.3g} (limit '
+                         f'1e-4), relative to the largest magnitude')
+
+            k_ms = time_ms(lambda: blur.blur3d(x, ks))
+            p_ms = time_ms(lambda: blur._plain(x, ks))
+            xc = x[:, None]
+            if width <= 7:   # one conv3d with the outer-product kernel
+                w3 = (k1[:, None, None] * k1[None, :, None]
+                      * k1[None, None, :])[None, None]
+                l_ms = time_ms(lambda: torch.nn.functional.conv3d(
+                    xc, w3, padding=width // 2))
+                lib = 'one conv3d'
+            else:            # three per-axis conv3d calls
+                ws = [k1.reshape(1, 1, -1, 1, 1), k1.reshape(1, 1, 1, -1, 1),
+                      k1.reshape(1, 1, 1, 1, -1)]
+                pads = [(width // 2, 0, 0), (0, width // 2, 0),
+                        (0, 0, width // 2)]
+
+                def three(xc=xc, ws=ws, pads=pads):
+                    y = xc
+                    for w, p in zip(ws, pads):
+                        y = torch.nn.functional.conv3d(y, w, padding=p)
+                    return y
+                l_ms = time_ms(three)
+                lib = 'three conv3d calls'
+            nbytes = 2 * x.numel() * 4 + 3 * width * 4
+            flops = blur_flops(shape, (width,) * 3)
+            b_ms, by = bound_ms(nbytes, flops)
+            c_ms = call_ms(lambda: blur.blur3d(x, ks))
+            print(f'  blur {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
+                  f'{lib} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); one '
+                  f'kernel call (3 launches) {c_ms:.4f} ms', flush=True)
+            r['max_abs_err'] = max(r['max_abs_err'], err)
+            for _ in range(per_step):   # a synthesis step's calls sum
+                r['ms'] += k_ms
+                r['plain_ms'] += p_ms
+                r['library_ms'] += l_ms
+                add_bound(r, nbytes, flops)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+
+
+def synth_model(vol, device):
+    """bench.py's synth_rate generator: every knob at its default."""
+    return nt.models.labels_to_image_new(
+        labels_in=range(SYNTH_LABELS), out_shape=(vol,) * 3, one_hot=True,
+        device=device)
+
+
+def to_device(obj, device):
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    return obj
+
+
+def phase_synth_check(checks):
+    print(f'== 9a. synthesis at {CHECK_VOL}^3: kernels vs the plain CPU path',
+          flush=True)
+    lab = torch.from_numpy(np.random.default_rng(1).integers(
+        0, SYNTH_LABELS, size=(1, *(CHECK_VOL,) * 3, 1)))
+    gpu, cpu = synth_model(CHECK_VOL, 'cuda'), synth_model(CHECK_VOL, 'cpu')
+    for m in (gpu, cpu):
+        m.returns = [(k, True) for k, _ in m.returns]
+    # the raw draws (Perlin noise and taps included) made once; each device
+    # blurs them into its fields and runs the rest of the path
+    draws = gpu.draw(lab.shape, torch.Generator(device='cuda').manual_seed(5))
+    with torch.no_grad():
+        og = gpu.apply(lab.cuda(), gpu.perlin(draws))
+        oc = cpu.apply(lab, cpu.perlin(to_device(draws, 'cpu')))
+    torch.cuda.synchronize()
+    og = {k: v.cpu() for k, v in og.items()}
+    rel = {k: max_abs_err(og[k], oc[k]) / float(oc[k].abs().max())
+           for k in ('vel', 'bias')}
+    e_def = max_abs_err(og['def'], oc['def'])
+    bad = og['map'].argmax(-1) != oc['map'].argmax(-1)
+    mism = float(bad.float().mean())
+    # a label flipped by a nearest tie changes its voxel's intensity, and
+    # the image blur (7 taps, radius 3) its neighbours': compared elsewhere
+    near = torch.nn.functional.max_pool3d(bad[:, None].float(), 7, stride=1,
+                                          padding=3)[:, 0] > 0
+    kept = float((~near).float().mean())
+    e_img = max_abs_err(og['image'][~near], oc['image'][~near])
+    ok = (max(rel.values()) <= 1e-5 and e_def <= 1e-4 and mism <= 1e-3
+          and kept >= .5 and e_img <= 1e-4)
+    checks.check('synthesis kernels vs plain CPU', ok,
+                 f'vel {rel["vel"]:.3g} and bias {rel["bias"]:.3g} max abs '
+                 f'err over max (1e-5); def max abs err {e_def:.3g} (1e-4); '
+                 f'map mismatch share {mism:.3g} (1e-3, nearest ties); image '
+                 f'max abs err {e_img:.3g} (1e-4) on the {kept:.4f} of voxels '
+                 f'farther than 3 from a mismatch')
+
+
+def phase_synth_train(checks, res):
+    print(f'== 9. config #5: synthesis -> bf16 UNet step, {TRAIN_STEPS} '
+          f'steps at {VOL}^3', flush=True)
+    lab = torch.from_numpy(np.random.default_rng(0).integers(
+        0, SYNTH_LABELS, size=(1, VOL, VOL, VOL, 1))).cuda()
+    gen_model = synth_model(VOL, 'cuda')
+    model = nt.models.unet(
+        nb_features=16, input_shape=(VOL, VOL, VOL, 1), nb_levels=4,
+        conv_size=3, nb_labels=SYNTH_LABELS, feat_mult=2, nb_conv_per_level=2,
+        dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+        device='cuda')
+    state = training.create_train_state(model, training.adam(1e-3))
+    step = training.make_train_step(
+        nt.losses.SoftDice(check_input_limits=False).loss)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+
+    def one_step(i, events=None):
+        if events:
+            events[0].record()
+        with torch.no_grad():
+            out = gen_model(lab, training.step_generator(0, i, 'cuda'))
+        if events:
+            events[1].record()
+        return out, step(state, (out['image'], out['map']), gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times, synth_ms, outs = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        out, (state, m) = one_step(i, ev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        synth_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(m['loss'])
+        if i == TRAIN_STEPS - 1:
+            outs = out
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    checks.check('config #5 losses finite', all(np.isfinite(losses)),
+                 ' '.join(f'{v:.6f}' for v in losses))
+    mp, img = outs['map'], outs['image']
+    onehot = (tuple(mp.shape) == (1, VOL, VOL, VOL, SYNTH_LABELS)
+              and bool(((mp == 0) | (mp == 1)).all())
+              and bool((mp.sum(-1) == 1).all()))
+    checks.check('config #5 map one-hot', onehot, f'shape {tuple(mp.shape)}')
+    img_ok = (tuple(img.shape) == (1, VOL, VOL, VOL, 1)
+              and bool(torch.isfinite(img).all())
+              and float(img.min()) >= 0 and float(img.max()) <= 1)
+    checks.check('config #5 image finite in [0, 1]', img_ok,
+                 f'shape {tuple(img.shape)}')
+    per_step = {'interpn': 6, 'blur': 12, 'pool2_fwd': 3, 'pool2_bwd': 3,
+                'dice_sums': 1}
+    for name, n in per_step.items():
+        got, want = counts.get(name, 0), n * TRAIN_STEPS
+        checks.check(f'config #5 launches {name}', got == want and got > 0,
+                     f'{got} (expected {n} per step)')
+        if name in ('interpn', 'blur'):
+            res[name]['launches'] = got
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    s_ms = statistics.median(synth_ms[WARMUP_STEPS:])
+    print(f'  synthesis ms (CUDA events, median of steps {WARMUP_STEPS + 1}-'
+          f'{TRAIN_STEPS}): {s_ms:.3f}; all: '
+          + ' '.join(f'{t:.2f}' for t in synth_ms))
+    print(f'  step ms (synthesis + train step, median of steps '
+          f'{WARMUP_STEPS + 1}-{TRAIN_STEPS}): {step_ms:.3f}; all: '
+          + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+
+    # the synthesis waits for the host nowhere: CUDA's sync debug mode
+    # raises on any call that synchronises the host with the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        with torch.no_grad():
+            gen_model(lab, training.step_generator(0, TRAIN_STEPS, 'cuda'))
+        synced = ''
+    except RuntimeError as e:
+        synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    checks.check('config #5 synthesis without host sync', not synced,
+                 synced or "sync debug mode 'error' raised nothing")
+
+    # where the time goes: profiles of the synthesis alone and of whole
+    # steps (readings, not checks)
+    def synth_only(i):
+        with torch.no_grad():
+            gen_model(lab, training.step_generator(0, i, 'cuda'))
+
+    for label, fn in (('synthesis', synth_only), ('synthesis + step',
+                                                  one_step)):
+        try:
+            report_profile(label, fn, TRAIN_STEPS)
+        except Exception as e:  # noqa: BLE001
+            print(f'  {label} profile not measured: {type(e).__name__}: {e}')
+
+
+def report_profile(label, fn, first):
+    """Wall time, device busy time and idle share of PROFILE_STEPS calls
+    fn(first), fn(first + 1), ..., and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            fn(first + i)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = device_events(prof)
+    busy = sum(ms for ms, _, _ in rows)
+    n = sum(c for _, c, _ in rows)
+    print(f'  profile, {label}, {PROFILE_STEPS} calls: wall {wall:.3f} ms, '
+          f'device busy {busy:.3f} ms, {n // PROFILE_STEPS} device events '
+          f'per call, idle share {1 - busy / wall:.4f}')
+    for ms, c, key in sorted(rows, reverse=True)[:25]:
+        print(f'    {ms / PROFILE_STEPS:9.4f} ms/call {c // PROFILE_STEPS:5d}'
+              f'/call  {key[:90]}')
 
 
 def main():
     card = phase_device()
     checks = Checks()
     res = {n: {'name': n, 'route': 'cuda', 'source': src, 'replaces': rep,
-               'launches': 0, 'max_abs_err': 0., 'ms': 0., 'plain_ms': 0.}
+               'launches': 0, 'max_abs_err': 0., 'ms': 0., 'plain_ms': 0.,
+               'bound_ms': 0., 'bound_by': None, 'library_ms': 0.}
            for n, (src, rep) in KERNELS.items()}
     build_s = phase_build()
     phase_pool(checks, res)
@@ -308,9 +801,21 @@ def main():
     x, y = flagship_inputs()
     phase_parity(checks, x, y)
     phase_train(checks, res, x, y)
-    print(f'card: {card}; kernel build {build_s:.3f} s; pool ms are the sums '
-          f'over the three bf16 pool shapes of one step')
-    print(json.dumps({'kernels': list(res.values())}))
+    del x, y
+    phase_interpn(checks, res)
+    phase_blur(checks, res)
+    phase_synth_check(checks)
+    phase_synth_train(checks, res)
+    print(f'card: {card}; kernel build {build_s:.3f} s; each kernel\'s ms, '
+          f'plain_ms, library_ms and bound_ms sum its calls of one step: the '
+          f'three bf16 pool shapes, 5 linear 64^3 and 1 nearest 128^3 '
+          f'interpolations, 2 blurs of [3, 64^3] (41 taps) and one each of '
+          f'[1, 128^3] (165 and 7 taps; library: three conv3d calls but for '
+          f'7 taps); K1-K3 launches are the flagship run\'s, K4 and K6 '
+          f'config #5\'s')
+    print(json.dumps({'kernels': [{k: v for k, v in r.items()
+                                   if not k.startswith('_')}
+                                  for r in res.values()]}))
     if checks.failed:
         print(f'FAILED: {checks.failed}', flush=True)
         sys.exit(1)

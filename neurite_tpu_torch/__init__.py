@@ -12,8 +12,10 @@ numpy, never JAX.
 __version__ = '0.1.0'
 
 from neurite_tpu_torch import backend  # noqa: F401
+from neurite_tpu_torch import py  # noqa: F401
 from neurite_tpu_torch import utils  # noqa: F401
 from neurite_tpu_torch import ops  # noqa: F401
+from neurite_tpu_torch import layers  # noqa: F401
 from neurite_tpu_torch import metrics  # noqa: F401
 from neurite_tpu_torch import losses  # noqa: F401
 from neurite_tpu_torch import models  # noqa: F401

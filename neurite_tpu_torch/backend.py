@@ -1,17 +1,28 @@
 """
 Device selection for the PyTorch port.
 
-Counterpart of `neurite_tpu/backend.py`. Every function of the port takes its
-device from its tensors or from an explicit `device=` argument; these helpers
-name the default and the test the kernel wrappers make.
+Counterpart of `neurite_tpu/backend.py`. The port runs on the card: every
+constructor and entry point puts its modules and tensors on
+`default_device()` unless the caller passes `device='cpu'` (as the CPU tests
+do). Functions that take tensors follow their tensors' device.
 """
 
 import torch
 
 
 def default_device():
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+    """The first CUDA device. Raises when there is none: the port does not
+    fall back to the CPU on its own."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: neurite_tpu_torch runs on the card by default; "
+            "pass device='cpu' to run on the CPU")
+    return torch.device('cuda')
+
+
+def resolve_device(device=None):
+    """`device` as a torch.device; None means `default_device()`."""
+    return default_device() if device is None else torch.device(device)
 
 
 def is_cuda(t):

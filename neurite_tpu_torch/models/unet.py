@@ -17,7 +17,8 @@ matmul over channels (`PointwiseConv`) and every other conv `F.conv{N}d`.
 Parameters are float32 and are drawn on the CPU from a `torch.Generator`
 (seed 0 when none is given) as flax draws them (`lecun_normal` kernels, zero
 biases), then moved to `device`, so one seed gives the same weights on any
-device. `dtype` is the compute type: each conv casts its input and weights to
+device. `device` defaults to the card (`backend.default_device()`); the CPU
+runs only when a caller passes device='cpu'. `dtype` is the compute type: each conv casts its input and weights to
 it, as the JAX package does.
 """
 
@@ -28,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from neurite_tpu_torch import backend
 from neurite_tpu_torch.ops import max_pool
 from neurite_tpu_torch.ops.pool import _upsample  # keras UpSamplingND
 
@@ -286,8 +288,7 @@ class ConvEnc(nn.Module):
                                 BatchNorm(ch, axis=batch_norm, dtype=dtype))
             self.skip_channels.append(ch)
         self.out_channels = ch
-        if device is not None:
-            self.to(device)
+        self.to(backend.resolve_device(device))
 
     def forward(self, x, training=None, generator=None):
         training = self.training if training is None else training
@@ -379,8 +380,7 @@ class ConvDec(nn.Module):
         # final 1x1 likelihood conv (no activation), a matmul as in JAX
         self.likelihood = PointwiseConv(ch, nb_labels, ndims, dtype=dtype,
                                         generator=generator)
-        if device is not None:
-            self.to(device)
+        self.to(backend.resolve_device(device))
 
     def forward(self, x, skips=None, training=None, generator=None):
         training = self.training if training is None else training
@@ -455,6 +455,7 @@ class UNet(nn.Module):
             raise NotImplementedError(
                 'remat is not ported yet (ROADMAP.md, Queue 1)')
         generator = generator or torch.Generator().manual_seed(0)
+        device = backend.resolve_device(device)
         nb_levels = _nb_levels(nb_features, nb_levels)
         n_enc = nb_levels * nb_conv_per_level
         enc_lnf = layer_nb_feats[:n_enc] if layer_nb_feats is not None else None
@@ -467,7 +468,7 @@ class UNet(nn.Module):
             layer_nb_feats=enc_lnf, use_residuals=use_residuals,
             nb_conv_per_level=nb_conv_per_level, conv_dropout=conv_dropout,
             batch_norm=batch_norm, dtype=dtype, conv_impl=conv_impl,
-            pool_impl=pool_impl, generator=generator)
+            pool_impl=pool_impl, generator=generator, device=device)
         self.dec = ConvDec(
             self.enc.out_channels, ndims, nb_features, nb_levels, conv_size,
             nb_labels, feat_mult=feat_mult, pool_size=pool_size,
@@ -478,12 +479,11 @@ class UNet(nn.Module):
                                    else final_pred_activation),
             nb_conv_per_level=nb_conv_per_level, layer_nb_feats=dec_lnf,
             batch_norm=batch_norm, conv_dropout=conv_dropout, dtype=dtype,
-            conv_impl=conv_impl, generator=generator)
+            conv_impl=conv_impl, generator=generator, device=device)
         if add_prior_layer:
             self.prior = AddPrior(use_logp=use_logp,
                                   final_pred_activation=final_pred_activation)
-        if device is not None:
-            self.to(device)
+        self.to(backend.resolve_device(device))
 
     def forward(self, x, prior=None, training=None, generator=None):
         """x [B, *spatial, C] (or a list of such) -> prediction

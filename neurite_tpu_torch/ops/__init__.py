@@ -9,8 +9,20 @@ the kernel.
     max_pool — max pooling with the first-max backward (`pool.py`); a 2x2x2
         pool of a 3-D CUDA volume runs `max_pool2_3d` (`pool_cuda.py`).
     dice_sums — one-pass per-label Dice sums (`dice_red.py`).
+    interpn_window, interpn_onehot, interpn_pallas — the JAX engines' names
+        for the exact 3-D interpolation K4 (`warp.py`, `warp_cuda.py`).
+    separable_blur3d — the separable 3-D SAME blur K6 (`blur.py`,
+        `blur_cuda.py`).
+    resize_separable, interp_matrix — per-axis resize (`resize.py`).
 """
 
 from neurite_tpu_torch.ops.pool import max_pool  # noqa: F401
 from neurite_tpu_torch.ops.pool_cuda import max_pool2_3d  # noqa: F401
 from neurite_tpu_torch.ops.dice_red import dice_sums  # noqa: F401
+from neurite_tpu_torch.ops.warp import (  # noqa: F401
+    interpn_onehot, interpn_pallas, interpn_window,
+)
+from neurite_tpu_torch.ops.blur import separable_blur3d  # noqa: F401
+from neurite_tpu_torch.ops.resize import (  # noqa: F401
+    interp_matrix, resize_separable,
+)

@@ -1,8 +1,9 @@
 """
 Build and load the port's CUDA kernels.
 
-All of `ops/csrc/*.cu` is compiled by one `nvcc` call for Hopper (`sm_90a`)
-into a shared library with a plain C interface, loaded with `ctypes`. The
+Each of `ops/csrc/*.cu` is compiled for Hopper (`sm_90a`) by its own `nvcc`
+process, all started together, and one more `nvcc` links the objects into a
+shared library with a plain C interface, loaded with `ctypes`. The
 library's name carries a hash of the sources and flags, so a changed source
 builds anew and an unchanged one is loaded from `build/neurite_tpu_torch/`
 beside the package. Nothing builds at import: the first kernel launch calls
@@ -27,12 +28,13 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     'build', 'neurite_tpu_torch')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 # kernel name -> launches since the last clear(); see the module docstring
 launches = collections.Counter()
 
-_vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_vp, _i64, _int, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_float)
 _SIGNATURES = {
     'neurite_pool2_fwd_f32': [_vp, _vp] + [_i64] * 5 + [_vp],
     'neurite_pool2_fwd_bf16': [_vp, _vp] + [_i64] * 5 + [_vp],
@@ -40,6 +42,9 @@ _SIGNATURES = {
     'neurite_pool2_bwd_bf16': [_vp, _vp, _vp] + [_i64] * 5 + [_vp],
     'neurite_dice_sums_f32': [_vp, _vp, _vp, _vp, _i64, _i64, _int, _int,
                               _int, _vp],
+    'neurite_interpn3d_f32': [_vp, _vp, _vp] + [_i64] * 6 + [_int, _int, _f32,
+                                                             _vp],
+    'neurite_blur_axis_f32': [_vp, _vp, _vp] + [_i64] * 3 + [_int] * 3 + [_vp],
 }
 
 
@@ -92,17 +97,36 @@ def library():
         # per-process temp name, then an atomic rename: a concurrent build
         # never loads a half-written library
         tmp = f'{path}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *srcs]
+        objs = [f'{tmp}.{i}.o' for i in range(len(srcs))]
+        compiles = []
         try:
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
+            nvcc = _nvcc()
+            for src, o in zip(srcs, objs):
+                compiles.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, '-c', '-o', o, src], text=True,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            for src, proc in zip(srcs, compiles):
+                out, _ = proc.communicate()
+                log += out
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f'nvcc failed ({proc.returncode}) on {src}:\n{out}')
+            link = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', tmp, *objs]
+            res = subprocess.run(link, capture_output=True, text=True)
+            log += res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(
-                    f'nvcc failed ({res.returncode}): {" ".join(cmd)}\n{log}')
+                    f'nvcc link failed ({res.returncode}): {" ".join(link)}\n'
+                    f'{log}')
             os.replace(tmp, path)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            for proc in compiles:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in (tmp, *objs):
+                if os.path.exists(f):
+                    os.unlink(f)
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

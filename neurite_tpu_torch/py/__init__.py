@@ -1,0 +1,3 @@
+"""neurite_tpu_torch.py — framework-free helpers (counterpart of
+`neurite_tpu.py`)."""
+from neurite_tpu_torch.py import utils  # noqa: F401

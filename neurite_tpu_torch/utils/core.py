@@ -1,7 +1,65 @@
 """
-Tensor utilities; counterpart of `neurite_tpu/utils/core.py` (only what the
-Dice metric needs so far).
+N-D tensor utilities; counterpart of `neurite_tpu/utils/core.py` (reference
+`neurite/tf/utils/utils.py`), with the same names, arguments and channels-last
+[*spatial, C] tensors.
+
+Randomized functions take `seed`: a `torch.Generator` on the tensors' device
+(or an int, for a new one). JAX keys and torch generators draw different
+numbers, so the tests hand both packages the same draws.
+
+The 3-D interpolation and the 3-D SAME separable blur of a CUDA tensor run
+the hand-written kernels of `ops/` (K4, K6); everything else here is plain
+PyTorch, as it is plain XLA in the JAX package.
 """
+
+import functools
+import itertools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from neurite_tpu_torch import backend
+
+###############################################################################
+# helpers
+###############################################################################
+
+
+@functools.lru_cache(maxsize=512)
+def _cached_constant(data, shape, np_dtype, dtype, device):
+    a = np.frombuffer(data, dtype=np_dtype).reshape(shape).copy()
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def device_constant(array, device, dtype=None):
+    """
+    The host array `array` as a tensor on `device`, made once per process
+    and value: copying it anew at every call would put a host-to-device
+    transfer on the path. Callers must not write to the result.
+    """
+    a = np.ascontiguousarray(array)
+    return _cached_constant(a.tobytes(), a.shape, a.dtype.str, dtype,
+                            str(torch.device(device)))
+
+
+def as_generator(seed, device=None):
+    """Counterpart of `as_key`: a torch.Generator as it is, or a new one on
+    `device` seeded with the int `seed`."""
+    if seed is None:
+        raise ValueError('a seed or torch.Generator is required for '
+                         'randomized ops')
+    if isinstance(seed, (int, np.integer)):
+        return torch.Generator(
+            device=backend.resolve_device(device)).manual_seed(int(seed))
+    return seed
+
+
+def uniform(generator, shape, low, high, device, dtype=torch.float32):
+    """low + U[0, 1) * (high - low) on `device` (jax.random.uniform's form);
+    low and high may be floats or broadcastable tensors."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return low + u * (high - low)
 
 
 def batch_channel_flatten(x):
@@ -24,3 +82,454 @@ def flatten_axes(x, axes):
         raise ValueError(f'axis {axes[-1]} outside max axis {x.ndim - 1}')
     shp = tuple(x.shape)
     return x.reshape(*shp[:axes[0]], -1, *shp[axes[-1] + 1:])
+
+
+###############################################################################
+# interpolation
+###############################################################################
+
+def interpn(vol, loc, interp_method='linear', fill_value=None, impl='auto',
+            max_disp=8.0, block=None, guard='runtime'):
+    """
+    N-D gridded interpolation (linear or nearest) of `vol` at locations `loc`.
+
+    vol: [*vol_shape] or [*vol_shape, C]; loc: a list of N tensors of one
+    shape, or one tensor [*out_shape, N] of voxel coordinates. fill_value is
+    the value of points outside the volume; None clamps to the edge. Returns
+    [*out_shape] (+C when vol had channels).
+
+    A 3-D interpolation goes to `ops.warp.interpn_batch`: K4 for a CUDA
+    tensor (float32), the plain gather chain for a CPU one; every other
+    dimension runs the plain gather chain. `impl`,
+    `max_disp`, `block` and `guard` pick among the JAX package's TPU engines
+    and have no effect here: every engine computes this one exact function.
+
+    Parity: reference `neurite/tf/utils/utils.py:73-220`, JAX
+    `utils/core.py:70-192`.
+    """
+    del impl, max_disp, block, guard
+    if isinstance(loc, (list, tuple)):
+        loc = torch.stack(list(loc), -1)
+    nb_dims = loc.shape[-1]
+    if vol.ndim not in (nb_dims, nb_dims + 1):
+        raise ValueError(
+            f'Number of loc Tensors {nb_dims} does not match volume dimension '
+            f'{vol.ndim - 1}')
+    if interp_method not in ('linear', 'nearest'):
+        raise ValueError(
+            f'method should be linear or nearest, got: {interp_method}')
+    if nb_dims == 3:
+        from neurite_tpu_torch.ops import warp
+        return warp.interpn_batch(vol[None], loc[None], interp_method,
+                                  fill_value)[0]
+    return interpn_plain(vol, loc, interp_method, fill_value)
+
+
+def _clip(x, hi):
+    """jnp.clip(x, 0, hi) with JAX's gradient: half to each side of a tie
+    (torch.clamp would give all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())),
+                         x.new_full((), float(hi)))
+
+
+def interpn_plain(vol, loc, interp_method='linear', fill_value=None,
+                  batched=False):
+    """
+    The gather chain of `interpn`, in plain PyTorch: the plain version of K4
+    and the path of every other case. With batched=True, vol and loc carry a
+    leading batch axis of the same size.
+
+    Linear: loc0 = clip(floor(loc)), loc1 = clip(loc0 + 1); the weight of
+    corner bit 0 is loc1 - clip(loc) (so both corners collapse onto the edge),
+    corners are summed in itertools.product order and their weights
+    multiplied in axis order (`prod_n`). Nearest: round half to even, then
+    clip. `fill_value` replaces every channel of a point whose unclipped loc
+    is below 0 or above the last index on any axis.
+    """
+    nb = 1 if batched else 0
+    nb_dims = loc.shape[-1]
+    if vol.ndim not in (nb + nb_dims, nb + nb_dims + 1):
+        raise ValueError(
+            f'Number of loc Tensors {nb_dims} does not match volume dimension '
+            f'{vol.ndim - nb - 1}')
+    no_channel = vol.ndim == nb + nb_dims
+    if no_channel:
+        vol = vol[..., None]
+    if not loc.is_floating_point():
+        loc = loc.to(vol.dtype if vol.is_floating_point() else torch.float32)
+    elif vol.is_floating_point() and vol.dtype != loc.dtype:
+        loc = loc.to(vol.dtype)
+
+    volshape = tuple(vol.shape[nb:-1])
+    max_loc = [d - 1 for d in volshape]
+    flat_vol = vol.reshape(-1, vol.shape[-1])
+    if batched:
+        nvox = int(np.prod(volshape))
+        off = torch.arange(vol.shape[0], device=vol.device) * nvox
+        off = off.reshape(-1, *[1] * (loc.ndim - 2))
+    else:
+        off = 0
+
+    def gather(subs):
+        return flat_vol[sub2ind2d(volshape, subs) + off]
+
+    if interp_method == 'linear':
+        loc0 = torch.floor(loc)
+        clipped = [_clip(loc[..., d], max_loc[d]) for d in range(nb_dims)]
+        loc0lst = [loc0[..., d].clamp(0, max_loc[d]) for d in range(nb_dims)]
+        loc1 = [(loc0lst[d] + 1).clamp(0, max_loc[d]) for d in range(nb_dims)]
+        locs = [[f.long() for f in loc0lst], [f.long() for f in loc1]]
+        diff_loc1 = [loc1[d] - clipped[d] for d in range(nb_dims)]
+        diff_loc0 = [1 - d for d in diff_loc1]
+        weights_loc = [diff_loc1, diff_loc0]
+        interp_vol = 0
+        for c in itertools.product([0, 1], repeat=nb_dims):
+            vol_val = gather([locs[c[d]][d] for d in range(nb_dims)])
+            wt = prod_n([weights_loc[c[d]][d] for d in range(nb_dims)])
+            interp_vol = interp_vol + wt[..., None] * vol_val
+    elif interp_method == 'nearest':
+        roundloc = torch.round(loc).long()
+        interp_vol = gather([roundloc[..., d].clamp(0, max_loc[d])
+                             for d in range(nb_dims)])
+    else:
+        raise ValueError(
+            f'method should be linear or nearest, got: {interp_method}')
+
+    if fill_value is not None:
+        oob = torch.zeros(loc.shape[:-1], dtype=torch.bool, device=loc.device)
+        for d in range(nb_dims):
+            oob = oob | (loc[..., d] < 0) | (loc[..., d] > max_loc[d])
+        interp_vol = torch.where(
+            oob[..., None],
+            torch.full((), fill_value, dtype=interp_vol.dtype,
+                       device=interp_vol.device), interp_vol)
+    return interp_vol[..., 0] if no_channel else interp_vol
+
+
+def resize(vol, zoom_factor, interp_method='linear', new_shape=None):
+    """
+    N-D volume resize by `zoom_factor` (scipy-zoom-like). A list zoom_factor
+    sets ndims (vol may have one more, channel, axis); a scalar one needs vol
+    [*spatial, C]. `new_shape` overrides the target spatial shape.
+
+    Parity: reference `neurite/tf/utils/utils.py:223-264`; the resize is
+    axis-separable, so it runs as per-axis two-take passes
+    (`ops.resize.resize_separable`), identical to `interpn` on the zoom grid.
+    """
+    if isinstance(zoom_factor, (list, tuple)):
+        ndims = len(zoom_factor)
+        vol_shape = vol.shape[:ndims]
+        if len(vol.shape) not in (ndims, ndims + 1):
+            raise ValueError(f'zoom_factor length {ndims} does not match '
+                             f'volume rank {vol.ndim}')
+    else:
+        vol_shape = vol.shape[:-1]
+        ndims = len(vol_shape)
+        zoom_factor = [zoom_factor] * ndims
+    if new_shape is None:
+        if all(z == 1 for z in zoom_factor):
+            return vol
+        new_shape = [int(vol_shape[d] * zoom_factor[d]) for d in range(ndims)]
+    from neurite_tpu_torch.ops import resize as resize_ops
+    return resize_ops.resize_separable(vol, tuple(int(s) for s in new_shape),
+                                       method=interp_method)
+
+
+zoom = resize
+
+
+###############################################################################
+# grids
+###############################################################################
+
+def volshape_to_ndgrid(volshape, dtype=torch.int32, device=None):
+    """ndgrid ('ij') of ranges over a volume shape (ref `utils.py:333-351`)."""
+    if not all(float(d).is_integer() for d in volshape):
+        raise ValueError('volshape needs to be a list of integers')
+    device = backend.resolve_device(device)
+    return ndgrid(*[torch.arange(int(d), dtype=dtype, device=device)
+                    for d in volshape])
+
+
+def ndgrid(*args):
+    """N-D grid with 'ij' indexing (ref `utils.py:378-391`)."""
+    return meshgrid(*args, indexing='ij')
+
+
+def meshgrid(*args, indexing='xy'):
+    """Broadcast 1-D tensors onto an N-D grid (ref `utils.py:394-476`)."""
+    if indexing not in ('xy', 'ij'):
+        raise ValueError("indexing parameter must be either 'xy' or 'ij'")
+    return list(torch.meshgrid(*args, indexing=indexing))
+
+
+def grid_points(shape, device, dtype=torch.float32):
+    """The voxel grid of `shape` as one tensor [*shape, N] of coordinates."""
+    return torch.stack(volshape_to_ndgrid(shape, dtype=dtype, device=device),
+                       -1)
+
+
+def flatten(v):
+    """Flatten to 1-D (ref `utils.py:479-490`)."""
+    return v.reshape(-1)
+
+
+def sub2ind2d(siz, subs):
+    """Row-major linear index from per-dimension subscripts (ref
+    `utils.py:1068-1082`)."""
+    if len(siz) != len(subs):
+        raise ValueError(f'found inconsistent siz and subs: {len(siz)} '
+                         f'{len(subs)}')
+    k = np.cumprod(siz[::-1])
+    ndx = subs[-1]
+    for i, v in enumerate(subs[:-1][::-1]):
+        ndx = ndx + v * int(k[i])
+    return ndx
+
+
+def prod_n(lst):
+    """Fold-multiply a list of tensors (ref `utils.py:1085-1092`)."""
+    prod = lst[0]
+    for p in lst[1:]:
+        prod = prod * p
+    return prod
+
+
+###############################################################################
+# filtering
+###############################################################################
+
+def gaussian_kernel(sigma, windowsize=None, indexing='ij', separate=False,
+                    random=False, min_sigma=0, dtype=torch.float32, seed=None,
+                    device=None):
+    """
+    N-D Gaussian kernel (or a list of separated 1-D kernels).
+
+    With random=True each axis' sigma is drawn uniformly from [min_sigma,
+    sigma) with `seed` (a torch.Generator on `device`); the window is sized
+    from the nominal sigma, round(3 sigma) * 2 + 1, as in the reference
+    (`utils.py:581-662`). sigma may also be a list of 0-d tensors (a sigma
+    drawn on the device) when `windowsize` is given: the kernel is then
+    computed on the device, without a host sync.
+    """
+    if not dtype.is_floating_point:
+        raise ValueError(f'{dtype} is not floating-point')
+    if not isinstance(sigma, (list, tuple)):
+        sigma = [sigma]
+    if not isinstance(min_sigma, (list, tuple)):
+        min_sigma = [min_sigma] * len(sigma)
+    eps = float(torch.finfo(dtype).eps)
+    is_static = all(isinstance(s, (int, float, np.floating, np.integer))
+                    for s in sigma)
+    if is_static:
+        sigma = [max(float(f), eps) for f in sigma]
+    else:
+        device = next(s.device for s in sigma if torch.is_tensor(s))
+    min_sigma = [max(float(f), eps) for f in min_sigma]
+    device = backend.resolve_device(device)
+
+    if windowsize is None:
+        if not is_static:
+            raise ValueError('windowsize must be given when sigma is a tensor')
+        windowsize = [int(np.round(f * 3) * 2 + 1) for f in sigma]
+    if not isinstance(windowsize, (list, tuple)):
+        windowsize = [windowsize]
+    if len(sigma) != len(windowsize):
+        raise ValueError(f'sigma {sigma} and width {windowsize} differ in '
+                         'length')
+
+    mesh = [-0.5 * (np.arange(w) - (w - 1) / 2) ** 2 for w in windowsize]
+    if not separate:
+        mesh = np.meshgrid(*mesh, indexing=indexing)
+    mesh = [device_constant(m, device, dtype) for m in mesh]
+
+    if random:
+        gen = as_generator(seed, device)
+        sigma = [uniform(gen, (), a, b, device, dtype)
+                 for a, b in zip(min_sigma, sigma)]
+    exponent = [m / torch.as_tensor(s, dtype=dtype) ** 2
+                for m, s in zip(mesh, sigma)]
+    if not separate:
+        exponent = [sum(exponent)]
+    kernel = [torch.exp(x) for x in exponent]
+    kernel = [x / torch.sum(x) for x in kernel]
+    return kernel if len(kernel) > 1 else kernel[0]
+
+
+def _same_pad(length, width, stride, dilation):
+    """(low, high) zero padding of TF/XLA 'SAME' along one axis."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + (width - 1) * dilation + 1 - length, 0)
+    return total // 2, total - total // 2
+
+
+def conv_axis(x, k, axis, padding='SAME', stride=1, dilation=1):
+    """
+    Cross-correlate x [N, *space] with the 1-D taps k along spatial axis
+    `axis` (0-based), zero padded ('SAME') or not ('VALID'): the plain
+    per-axis pass of `separable_conv` (`F.conv{1,2,3}d` over one channel).
+    """
+    nd = x.ndim - 1
+    if nd not in (1, 2, 3):
+        raise ValueError(f'separable_conv takes 1 to 3 spatial dims, got {nd}')
+    width = k.numel()
+    shape = [1] * nd
+    shape[axis] = width
+    w = k.to(x.dtype).reshape(1, 1, *shape)
+    pad = [0] * (2 * nd)
+    mode = str(padding).upper()
+    if mode == 'SAME':
+        lo, hi = _same_pad(x.shape[1 + axis], width, stride, dilation)
+        pad[2 * (nd - 1 - axis)] = lo
+        pad[2 * (nd - 1 - axis) + 1] = hi
+    elif mode != 'VALID':
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    strides = [1] * nd
+    strides[axis] = stride
+    dilations = [1] * nd
+    dilations[axis] = dilation
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    out = conv(F.pad(x[:, None], pad), w, stride=strides, dilation=dilations)
+    return out[:, 0]
+
+
+def separable_conv(x, kernels, axis=None, batched=False, padding='SAME',
+                   strides=None, dilations=None):
+    """
+    Apply 1-D kernels along chosen spatial axes of a [*spatial, C] (or
+    [B, *spatial, C] when batched) tensor; the same filters apply to every
+    feature.
+
+    A 3-D CUDA tensor with padding 'SAME', stride 1 and dilation 1 takes the
+    separable blur kernel K6 (`ops.blur`, float32 only); every other case runs
+    `conv_axis` per axis.
+
+    Parity: reference `neurite/tf/utils/utils.py:665-752`.
+    """
+    if not batched:
+        x = x[None]
+    num_dim = x.ndim - 2
+    if np.isscalar(axis):
+        axis = [axis]
+    if axis is None:
+        axis = list(range(num_dim))
+    if not all(ax in range(num_dim) for ax in axis):
+        raise ValueError('non-spatial axis passed')
+
+    def _conform(v):
+        v = [1] if v is None else [int(s) for s in np.ravel(v)]
+        return v * len(axis) if len(v) == 1 else v
+    strides = _conform(strides)
+    dilations = _conform(dilations)
+    if len(strides) != len(axis) or len(dilations) != len(axis):
+        raise ValueError('number of strides/dilations and axes differ')
+    if not isinstance(kernels, (tuple, list)):
+        kernels = [kernels]
+    if len(kernels) == 1:
+        kernels = list(kernels) * len(axis)
+    if len(kernels) != len(axis):
+        raise ValueError('number of kernels and axes differ')
+    kernels = [torch.as_tensor(k, device=x.device).to(x.dtype).reshape(-1)
+               for k in kernels]
+
+    # merge batch and features: [B, *space, C] -> [B*C, *space]
+    b, c = x.shape[0], x.shape[-1]
+    shape_space = tuple(x.shape[1:-1])
+    y = x.movedim(-1, 1).reshape(b * c, *shape_space)
+
+    if (x.is_cuda and num_dim == 3 and str(padding).upper() == 'SAME'
+            and len(set(axis)) == len(axis)
+            and all(s == 1 for s in strides)
+            and all(d == 1 for d in dilations)):
+        from neurite_tpu_torch.ops import blur
+        ks3 = [None] * 3
+        for ax, k in zip(axis, kernels):
+            ks3[ax] = k
+        y = blur.blur3d(y.contiguous(), ks3)
+    else:
+        for ax, k, s, d in zip(axis, kernels, strides, dilations):
+            y = conv_axis(y, k, ax, padding, s, d)
+    y = y.reshape(b, c, *y.shape[1:]).movedim(1, -1)
+    return y if batched else y[0]
+
+
+def subsample_axis(x, stride_min=1, stride_max=8, axes=None, prob=1,
+                   upsample=True, seed=None):
+    """
+    Randomly subsample x along one randomly drawn axis by a random factor in
+    [stride_min, stride_max) with nearest-neighbour resampling, and with
+    upsample=True resample back to the input shape (thick slices).
+
+    The draws stay on the device: every candidate axis is resampled and the
+    drawn one selected, so the shape is static and nothing syncs.
+    upsample=False changes the shape with the draw and reads it on the host.
+
+    Parity: reference `neurite/tf/utils/utils.py:754-826`.
+    """
+    num_dim = x.ndim
+    if axes is None:
+        axes = list(range(num_dim))
+    if np.isscalar(axes):
+        axes = [axes]
+    if not all(i in range(num_dim) for i in axes):
+        raise ValueError('invalid axis passed')
+    if not 0 < stride_min <= stride_max:
+        raise ValueError('invalid strides')
+    if not 0 <= prob <= 1:
+        raise ValueError(f'{prob} not a probability')
+    gen = as_generator(seed, x.device)
+    ind, thick = draw_subsample(gen, len(axes), stride_min, stride_max, prob,
+                                x.device)
+    if not upsample:
+        thick_c = float(thick)
+        ax = axes[int(ind)]
+        width = x.shape[ax]
+        num_slice = int(width / thick_c + 0.5)
+        idx = np.floor(np.linspace(0., width - 1., num_slice)
+                       + 0.5).astype(np.int64)
+        return x.index_select(ax, torch.from_numpy(idx).to(x.device))
+    return apply_subsample(x, ind, thick, axes)
+
+
+def draw_subsample(generator, n_axes, stride_min, stride_max, prob, device):
+    """The draws of `subsample_axis`: the axis index among the candidates
+    and the slice thickness (1 where the prob gate fails), as 0-d tensors."""
+    ind = torch.randint(0, n_axes, (), generator=generator, device=device)
+    thick = uniform(generator, (), float(stride_min), float(stride_max),
+                    device)
+    if prob < 1:
+        gate = torch.rand((), generator=generator, device=device) < prob
+        thick = torch.where(gate, thick, torch.ones_like(thick))
+    return ind, thick
+
+
+def apply_subsample(x, ind, thick, axes):
+    """Thick slices along axes[ind] with thickness `thick`: the down- and
+    up-sampling gathers composed into one (JAX `_composed_indices`)."""
+    out = x
+    for i, ax in enumerate(axes):
+        width = x.shape[ax]
+        num_slice = torch.floor(width / thick + 0.5).to(torch.int32)
+        pos = torch.arange(width, dtype=torch.float32, device=x.device)
+        u = torch.floor(pos * (num_slice - 1) / max(width - 1, 1) + 0.5)
+        denom = torch.clamp(num_slice - 1, min=1).to(torch.float32)
+        idx = torch.floor(u * (width - 1) / denom + 0.5).long()
+        out = torch.where(ind == i, x.index_select(ax, idx), out)
+    return out
+
+
+###############################################################################
+# intensity
+###############################################################################
+
+def minmax_norm(x, axis=None):
+    """Safe min-max normalization (ref `utils.py:953-967`)."""
+    if axis is None:
+        axis = tuple(range(x.ndim))
+    x_min = torch.amin(x, dim=axis, keepdim=True)
+    x_max = torch.amax(x, dim=axis, keepdim=True)
+    den = x_max - x_min
+    zero = den == 0
+    return torch.where(zero, torch.zeros((), dtype=x.dtype, device=x.device),
+                       (x - x_min) / torch.where(zero, torch.ones_like(den),
+                                                 den))

@@ -41,7 +41,8 @@ def _leaves(tree, prefix=()):
 
 
 def test_train_step_matches_jax_grads_and_adam():
-    tm = nt.models.unet(**CFG, generator=torch.Generator().manual_seed(0))
+    tm = nt.models.unet(device='cpu', **CFG,
+                        generator=torch.Generator().manual_seed(0))
     params = convert.to_flax_params(tm)
     jm = ne.models.unet(**CFG)
     x, y = _batch(1)
@@ -87,7 +88,7 @@ def test_train_step_matches_jax_grads_and_adam():
 
 
 def test_fit_lowers_loss_and_runs_hooks():
-    tm = nt.models.unet(**{**CFG, 'input_shape': (8, 8, 8, 1)},
+    tm = nt.models.unet(device='cpu', **{**CFG, 'input_shape': (8, 8, 8, 1)},
                         generator=torch.Generator().manual_seed(1))
     state = training.create_train_state(tm, training.adam(3e-3))
     step = training.make_train_step(nt.losses.SoftDice().loss)
@@ -135,7 +136,8 @@ def test_step_generator_and_dropout_are_reproducible():
     x, y = _batch(3, vol=8)
     losses = []
     for _ in range(2):
-        tm = nt.models.unet(**{**CFG, 'input_shape': (8, 8, 8, 1)},
+        tm = nt.models.unet(device='cpu',
+                            **{**CFG, 'input_shape': (8, 8, 8, 1)},
                             conv_dropout=.3,
                             generator=torch.Generator().manual_seed(2))
         state = training.create_train_state(tm, training.adam(1e-3))

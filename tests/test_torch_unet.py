@@ -71,7 +71,7 @@ def _models(name, dtype=(None, None)):
     kw, ishape, training, use_prior = CONFIGS[name]
     args = {**BASE, **kw, 'input_shape': ishape}
     jm = ne.models.unet(**args, dtype=dtype[1])
-    tm = nt.models.unet(**args, dtype=dtype[0],
+    tm = nt.models.unet(device='cpu', **args, dtype=dtype[0],
                         generator=torch.Generator().manual_seed(7))
     rng = np.random.default_rng(0)
     x = rng.normal(size=(1, *ishape)).astype(np.float32)
@@ -102,7 +102,7 @@ def test_unet_matches_flax(name):
         yj = jax.jit(jm.apply)(variables, *jargs)
 
     # a second model, drawn from another seed, takes the tree by name
-    tm2 = nt.models.unet(**{**BASE, **CONFIGS[name][0],
+    tm2 = nt.models.unet(device='cpu', **{**BASE, **CONFIGS[name][0],
                             'input_shape': CONFIGS[name][1]},
                          generator=torch.Generator().manual_seed(8))
     convert.load_flax_params(tm2, params, stats or None)
@@ -139,7 +139,7 @@ def test_load_flax_params_round_trips_and_checks_names():
     _, tm, _, _, _ = _models('batch_norm')
     params = convert.to_flax_params(tm)
     stats = convert.to_flax_params(tm, 'batch_stats')
-    tm2 = nt.models.unet(**{**BASE, **CONFIGS['batch_norm'][0],
+    tm2 = nt.models.unet(device='cpu', **{**BASE, **CONFIGS['batch_norm'][0],
                             'input_shape': (16, 16, 16, 1)},
                          generator=torch.Generator().manual_seed(9))
     convert.load_flax_params(tm2, params, stats)
@@ -157,7 +157,8 @@ def test_load_flax_params_round_trips_and_checks_names():
 
 
 def test_module_names_layout_and_conv_impl():
-    tm = nt.models.unet(**BASE, input_shape=(8, 8, 8, 1), use_residuals=True)
+    tm = nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
+                        use_residuals=True)
     names = dict(tm.named_modules())
     for n in ('enc.conv_downarm_0_0', 'enc.conv_downarm_2_1',
               'enc.expand_down_merge_1', 'dec.conv_uparm_3_0',
@@ -168,30 +169,33 @@ def test_module_names_layout_and_conv_impl():
     assert isinstance(tm.dec.likelihood, PointwiseConv)
     # a 1x1x1 conv is a matmul under 'auto' and a conv under 'native'
     for impl, cls in (('auto', PointwiseConv), ('native', Conv)):
-        m = nt.models.unet(**{**BASE, 'conv_size': 1},
+        m = nt.models.unet(device='cpu', **{**BASE, 'conv_size': 1},
                            input_shape=(8, 8, 8, 1), conv_impl=impl)
         assert isinstance(m.enc.conv_downarm_0_0, cls)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nt.models.unet(**BASE, input_shape=(8, 8, 8, 1), space_to_depth=2)
+        nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
+                       space_to_depth=2)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nt.models.unet(**BASE, input_shape=(8, 8, 8, 1), remat=True)
+        nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
+                       remat=True)
 
 
 def test_same_seed_same_weights_and_constructors():
-    a = nt.models.unet(**BASE, input_shape=(8, 8, 8, 1),
+    a = nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
                        generator=torch.Generator().manual_seed(3))
-    b = nt.models.dilation_net(**BASE, input_shape=(8, 8, 8, 1),
+    b = nt.models.dilation_net(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
                                generator=torch.Generator().manual_seed(3))
     for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(p, q), n
     assert b.enc.conv_downarm_1_0.dilation == 2
     x = torch.zeros(2, 8, 8, 8, 1)
-    enc = nt.models.conv_enc(4, (8, 8, 8, 1), 3, 3, feat_mult=2)
+    enc = nt.models.conv_enc(4, (8, 8, 8, 1), 3, 3, feat_mult=2,
+                             device='cpu')
     z, skips = enc(x)
     assert z.shape == (2, 2, 2, 2, 16)
     assert [s.shape[-1] for s in skips] == enc.skip_channels == [4, 8, 16]
     dec = nt.models.conv_dec(4, (2, 2, 2, 16), 3, 3, 5, feat_mult=2,
-                             use_skip_connections=True,
+                             device='cpu', use_skip_connections=True,
                              skip_channels=enc.skip_channels)
     y = dec(z, skips)
     assert y.shape == (2, 8, 8, 8, 5)
@@ -212,7 +216,8 @@ def test_feature_dropout_broadcasts_over_space():
     assert _dropout(x, .5, False, None, 3) is x
     with pytest.raises(ValueError, match='Generator'):
         _dropout(x, .5, True, None, 3)
-    m = nt.models.unet(**BASE, input_shape=(8, 8, 8, 1), conv_dropout=.3)
+    m = nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
+                       conv_dropout=.3)
     out = m(torch.ones(1, 8, 8, 8, 1), training=True,
             generator=torch.Generator().manual_seed(1))
     assert out.shape == (1, 8, 8, 8, 3) and torch.isfinite(out).all()
