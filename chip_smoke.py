@@ -3,12 +3,13 @@ Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Drives the port's two paths through their public entry points: the
+Drives the port's three paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
 nb_conv_per_level=2, conv_size=3, nb_labels=4, 128^3, batch 1, SoftDice,
-Adam 1e-3) and the config #5 synthesis -> UNet training step; and checks
-every hand-written kernel on them against its plain PyTorch version, each
-path's launch counts set to 0 just before it and read just after. Phases:
+Adam 1e-3), the config #5 synthesis -> UNet training step and the config #3
+UNet -> LocallyConnected3D head training step; and checks every
+hand-written kernel on them against its plain PyTorch version, each path's
+launch counts set to 0 just before it and read just after. Phases:
 
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds the kernels (`neurite_tpu_torch/ops/csrc`);
@@ -43,7 +44,24 @@ path's launch counts set to 0 just before it and read just after. Phases:
      (every K4 and K6 call of the path: the Perlin blurs, the squarings,
      the label warp and the image blur); profiles
      of 3 synthesis calls and of 3 steps (device time by kernel, idle
-     share).
+     share);
+ 10. LC: K7 (forward), K8 (dk) and K9 (dx) vs their plain versions at the
+     config #3 head's shapes (x [1, 160^3, 4], weights [1, 108, 160^3],
+     g [1, 160^3, 1]; bfloat16 and float32): equal; at 32^3 with 2 filters
+     and batch 3, in both weight layouts: within 1e-6 of the largest
+     magnitude; the keras-layout `lc3d_pallas` (the v1 semantics, bf16
+     products rounded in dx) at [160^3, 4], forward and both gradients:
+     equal;
+ 11. one float32 config #3 step at 64^3 through the kernels and one through
+     the plain versions from the same weights (TF32 off, deterministic
+     cuDNN): losses within rtol 1e-5, each gradient within 1e-4 of its
+     largest magnitude;
+ 12. config #3 (`bench.py:335-372`): the UNet trunk (nb_features=8,
+     nb_levels=3, feat_mult=2, linear output, bf16 compute) feeding
+     LocallyConnected3D(filters=1, kernel_size=3, 'same', bf16 weights
+     [1, 108, 160^3]), MSE, Adam 1e-4, 160^3, 10 steps: finite losses,
+     launch counts of K1, K2 and K7-K9 exactly those of 10 steps, median
+     step ms, vol/s, peak memory; a profile of 3 steps.
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -61,6 +79,7 @@ machine without a CUDA device.
 """
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -72,8 +91,8 @@ import torch
 
 import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
-from neurite_tpu_torch.ops import (_build, blur, dice_red, pool, pool_cuda,
-                                   warp_cuda)
+from neurite_tpu_torch.ops import (_build, blur, dice_red, lc_cuda, pool,
+                                   pool_cuda, warp_cuda)
 from neurite_tpu_torch.utils import core
 
 VOL = 128
@@ -98,7 +117,18 @@ KERNELS = {
                 'neurite_tpu/ops/pallas_warp.py:114 and :302'),
     'blur': ('neurite_tpu_torch/ops/csrc/blur.cu',
              'neurite_tpu/ops/blur.py:118'),
+    'lc_fwd': ('neurite_tpu_torch/ops/csrc/lc.cu',
+               'neurite_tpu/ops/pallas_lc2.py:230 and '
+               'neurite_tpu/ops/pallas_lc.py:188'),
+    'lc_dk': ('neurite_tpu_torch/ops/csrc/lc.cu',
+              'neurite_tpu/ops/pallas_lc2.py:263 and '
+              'neurite_tpu/ops/pallas_lc.py:220'),
+    'lc_dx': ('neurite_tpu_torch/ops/csrc/lc.cu',
+              'neurite_tpu/ops/pallas_lc.py:252'),
 }
+LC_VOL = 160        # config #3's volume
+LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
+LC_KS = (3, 3, 3)
 
 
 class Checks:
@@ -765,6 +795,253 @@ def phase_synth_train(checks, res):
             print(f'  {label} profile not measured: {type(e).__name__}: {e}')
 
 
+def lc_inputs(gen, batch, vol, chans, filters, dtype):
+    """Normal draws on the card: x [B, vol^3, C] and transposed weights
+    [O, 27*C, vol^3] in `dtype`, and a float32 cotangent g [B, vol^3, O]."""
+    sp = (vol,) * 3
+    x = torch.randn((batch, *sp, chans), generator=gen, device='cuda')
+    k = torch.randn((filters, 27 * chans, vol ** 3), generator=gen,
+                    device='cuda')
+    g = torch.randn((batch, *sp, filters), generator=gen, device='cuda')
+    return x.to(dtype), k.to(dtype), g
+
+
+def lc_calls(x, k, g, keras):
+    """(name, kernel call, plain call) of K7, K8 and K9 on x, the weights k
+    ([V, TC, O] if keras, else [O, TC, V]) and g. With keras, K9 rounds
+    each product to the weights' dtype (the v1 semantics)."""
+    kv, shape = lc_cuda._weight_view(k, keras), tuple(x.shape)
+    return [
+        ('lc_fwd', lambda: lc_cuda.fwd_cuda(x, kv, LC_KS, 'same'),
+         lambda: lc_cuda.fwd_plain(x, kv, LC_KS, 'same')),
+        ('lc_dk', lambda: lc_cuda.dk_cuda(g, x, LC_KS, 'same', k.dtype, keras),
+         lambda: lc_cuda.dk_plain(g, x, LC_KS, 'same', k.dtype, keras)),
+        ('lc_dx', lambda: lc_cuda.dx_cuda(g, kv, LC_KS, 'same', shape,
+                                          x.dtype, keras),
+         lambda: lc_cuda.dx_plain(g, kv, LC_KS, 'same', shape, x.dtype,
+                                  keras)),
+    ]
+
+
+def lc_live_weights(spatial, filters, chans):
+    """Weights of a 'same' 3x3x3 LC conv that multiply an input inside the
+    volume: along an axis of length s the taps reach 3s - 2 inputs. The
+    others multiply the zero padding, so the forward and dx need neither
+    their bytes nor their work (dk still writes them)."""
+    return math.prod(3 * s - 2 for s in spatial) * filters * chans
+
+
+def lc_bound(name, x, k, g):
+    """Bytes and float32 operations K7, K8 or K9 needs at these inputs."""
+    batch, chans, filters = x.shape[0], x.shape[-1], k.shape[0]
+    live = lc_live_weights(x.shape[1:4], filters, chans)
+    xb, gb, ksz = x.numel() * x.element_size(), g.numel() * 4, k.element_size()
+    if name == 'lc_fwd':   # read live weights and x, write y (f32)
+        return live * ksz + xb + gb, 2 * live * batch
+    if name == 'lc_dk':    # read g and x, write every weight
+        return k.numel() * ksz + gb + xb, live * (2 * batch - 1)
+    return live * ksz + gb + xb, 2 * live * batch   # dx: read weights, g
+
+
+def phase_lc(checks, res):
+    print('== 10. LC K7/K8/K9 vs plain', flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(10)
+    # the head's shapes: bf16 (the step's types), then float32; equal
+    for dtype in (torch.bfloat16, torch.float32):
+        x, k, g = lc_inputs(gen, 1, LC_VOL, 4, 1, dtype)
+        for name, kern, plain in lc_calls(x, k, g, False):
+            a, b = kern(), plain()
+            torch.cuda.synchronize()
+            err = max_abs_err(a, b)
+            tag = f'{str(dtype)[6:]} x {list(x.shape)} w {list(k.shape)}'
+            checks.check(f'{name} {tag}', bit_equal(a, b),
+                         f'equal {bool(torch.equal(a, b))}, max abs err '
+                         f'{err:.3g}')
+            r = res[name]
+            r['max_abs_err'] = max(r['max_abs_err'], err)
+            del a, b
+            if dtype != torch.bfloat16:
+                continue
+            r['ms'], r['plain_ms'] = time_ms(kern), time_ms(plain)
+            r['library_ms'] = None   # no single PyTorch call is an LC conv
+            nbytes, flops = lc_bound(name, x, k, g)
+            add_bound(r, nbytes, flops)
+            c_ms = call_ms(kern)
+            print(f'  {name} {tag}: kernel {r["ms"]:.4f} ms, plain '
+                  f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+                  f'({r["bound_by"]}; {nbytes} B, {flops} flop); one kernel '
+                  f'call {c_ms:.4f} ms', flush=True)
+        del x, k, g
+    # 2 filters, batch 3, both weight layouts: the strides, the filter loop
+    # and the batch fold
+    for dtype in (torch.bfloat16, torch.float32):
+        x, k, g = lc_inputs(gen, 3, 32, 4, 2, dtype)
+        for keras in (False, True):
+            kk = k.permute(2, 1, 0).contiguous() if keras else k
+            for name, kern, plain in lc_calls(x, kk, g, keras):
+                a, b = kern(), plain()
+                torch.cuda.synchronize()
+                err = max_abs_err(a, b)
+                rel = err / max(float(b.float().abs().max()), 1e-30)
+                checks.check(
+                    f'{name} {str(dtype)[6:]} 32^3 O=2 B=3 '
+                    f'{"keras" if keras else "transposed"}', rel <= 1e-6,
+                    f'max abs err / max {rel:.3g} (1e-6); equal '
+                    f'{bool(torch.equal(a, b))}')
+                res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+
+    # the keras-layout v1 entry point through autograd, at the head's shape
+    sp, V = (LC_VOL,) * 3, LC_VOL ** 3
+    xf = torch.randn((V, 4), generator=gen, device='cuda').bfloat16()
+    k2 = torch.randn((V, 108), generator=gen, device='cuda').bfloat16()
+    gf = torch.randn((V, 1), generator=gen, device='cuda')
+    xr, kr = xf.clone().requires_grad_(), k2.clone().requires_grad_()
+    y = lc_cuda.lc3d_pallas(xr, kr, sp, LC_KS)
+    dx, dk = torch.autograd.grad(y, (xr, kr), gf)
+    x5, g5 = xf.reshape(1, *sp, 4), gf.reshape(1, *sp, 1)
+    kv = lc_cuda._weight_view(k2, True)
+    want = (lc_cuda.fwd_plain(x5, kv, LC_KS, 'same').reshape(V, 1),
+            lc_cuda.dx_plain(g5, kv, LC_KS, 'same', tuple(x5.shape),
+                             torch.bfloat16, True).reshape(V, 4),
+            lc_cuda.dk_plain(g5, x5, LC_KS, 'same', torch.bfloat16,
+                             True).reshape(V, 108))
+    torch.cuda.synchronize()
+    for what, a, b, name in zip(('y', 'dx', 'dk'), (y.detach(), dx, dk), want,
+                                ('lc_fwd', 'lc_dx', 'lc_dk')):
+        err = max_abs_err(a, b)
+        checks.check(f'lc3d_pallas (keras, v1) bf16 [{V}, 4] {what}',
+                     bit_equal(a, b), f'max abs err {err:.3g}')
+        res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+
+
+class EncDecLC(torch.nn.Module):
+    """Config #3 (`bench.py:335-372`): the UNet trunk feeding a
+    LocallyConnected3D head. Attribute names follow the flax tree
+    (`ne.models.unet` drops its name, so flax calls the trunk UNet_0).
+    impl='plain' takes the plain pool and LC forms on the card."""
+
+    def __init__(self, size, dtype, impl='auto'):
+        super().__init__()
+        gen = torch.Generator().manual_seed(0)
+        sp = (size,) * 3
+        self.UNet_0 = nt.models.unet(
+            nb_features=8, input_shape=(*sp, 1), nb_levels=3, conv_size=3,
+            nb_labels=4, feat_mult=2, final_pred_activation='linear',
+            dtype=dtype, conv_impl='auto',
+            pool_impl='plain' if impl == 'plain' else 'kernel',
+            generator=gen, device='cuda')
+        self.lc = nt.layers.LocallyConnected3D(
+            filters=1, kernel_size=3, padding='same', input_shape=(*sp, 4),
+            param_dtype=dtype or torch.float32, impl=impl, generator=gen,
+            device='cuda')
+
+    def forward(self, x, training=None, generator=None):
+        return self.lc(self.UNet_0(x, training=training, generator=generator))
+
+
+def config3_inputs(size):
+    """bench.py's config #3 batch: x and y normal draws of one rng."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, size, size, size, 1)).astype(np.float32)
+    y = rng.normal(size=(1, size, size, size, 1)).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def mse(y_true, y_pred):
+    return torch.mean((y_true - y_pred.float()) ** 2)
+
+
+def phase_lc_check(checks):
+    print(f'== 11. config #3 f32 step at {LC_CHECK_VOL}^3: kernels vs plain',
+          flush=True)
+    x, y = config3_inputs(LC_CHECK_VOL)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for impl in ('auto', 'plain'):
+            model = EncDecLC(LC_CHECK_VOL, None, impl)
+            state = training.create_train_state(model, training.adam(1e-4))
+            _build.launches.clear()
+            state, m = training.make_train_step(mse)(state, (x, y))
+            runs[impl] = (float(m['loss']), dict(_build.launches),
+                          {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()})
+            del model, state
+        (lk, nk, gk), (lp, np_, gp) = runs['auto'], runs['plain']
+        checks.check('config #3 f32 launches', all(
+            nk.get(n, 0) == c for n, c in (('lc_fwd', 1), ('lc_dk', 1),
+                                           ('lc_dx', 1), ('pool2_fwd', 2),
+                                           ('pool2_bwd', 2)))
+            and not np_, f'kernels {nk}, plain {np_}')
+        checks.check('config #3 f32 loss', abs(lk - lp) <= 1e-5 * abs(lp),
+                     f'kernels {lk!r} plain {lp!r} (rtol 1e-5)')
+        worst = max(float((gk[n] - gp[n]).abs().max() / gp[n].abs().max())
+                    for n in gp)
+        checks.check('config #3 f32 grads', worst <= 1e-4,
+                     f'{len(gp)} tensors, worst max|diff|/max|g| {worst:.3g} '
+                     f'(limit 1e-4); all equal '
+                     f'{all(torch.equal(gk[n], gp[n]) for n in gp)}')
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def phase_lc_train(checks, res):
+    print(f'== 12. config #3: UNet -> LocallyConnected3D head, bf16, '
+          f'{TRAIN_STEPS} steps at {LC_VOL}^3', flush=True)
+    t0 = time.perf_counter()
+    model = EncDecLC(LC_VOL, torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f'  model built in {init_s:.3f} s (weights drawn on the CPU, then '
+          f'moved): {n_par} parameters, head kernel '
+          f'{list(model.lc.kernel.shape)} {model.lc.kernel.dtype}')
+    x, y = config3_inputs(LC_VOL)
+    state = training.create_train_state(model, training.adam(1e-4))
+    step = training.make_train_step(mse)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, (x, y))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m['loss'])
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    checks.check('config #3 losses finite', all(np.isfinite(losses)),
+                 ' '.join(f'{v:.6f}' for v in losses))
+    moments = state.optimizer.state[model.lc.kernel]['exp_avg'].dtype
+    checks.check('config #3 head moments in the parameter dtype',
+                 moments == torch.bfloat16, str(moments))
+    per_step = {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1, 'lc_dk': 1,
+                'lc_dx': 1}
+    for name, n in per_step.items():
+        got, want = counts.get(name, 0), n * TRAIN_STEPS
+        checks.check(f'config #3 launches {name}', got == want and got > 0,
+                     f'{got} (expected {n} per step)')
+        if name.startswith('lc_'):
+            res[name]['launches'] = got
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
+          f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+    try:
+        report_profile('config #3 step', lambda i: step(state, (x, y)),
+                       TRAIN_STEPS)
+    except Exception as e:  # noqa: BLE001  (a reading, not a check)
+        print(f'  config #3 profile not measured: {type(e).__name__}: {e}')
+
+
 def report_profile(label, fn, first):
     """Wall time, device busy time and idle share of PROFILE_STEPS calls
     fn(first), fn(first + 1), ..., and the device time by kernel."""
@@ -806,13 +1083,17 @@ def main():
     phase_blur(checks, res)
     phase_synth_check(checks)
     phase_synth_train(checks, res)
+    phase_lc(checks, res)
+    phase_lc_check(checks)
+    phase_lc_train(checks, res)
     print(f'card: {card}; kernel build {build_s:.3f} s; each kernel\'s ms, '
           f'plain_ms, library_ms and bound_ms sum its calls of one step: the '
           f'three bf16 pool shapes, 5 linear 64^3 and 1 nearest 128^3 '
           f'interpolations, 2 blurs of [3, 64^3] (41 taps) and one each of '
           f'[1, 128^3] (165 and 7 taps; library: three conv3d calls but for '
-          f'7 taps); K1-K3 launches are the flagship run\'s, K4 and K6 '
-          f'config #5\'s')
+          f'7 taps), one LC call each at the config #3 head (bf16); K1-K3 '
+          f'launches are the flagship run\'s, K4 and K6 config #5\'s, K7-K9 '
+          f'config #3\'s')
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}
                                   for r in res.values()]}))

@@ -9,8 +9,11 @@ leaf type:
     Conv           kernel [*k, I, O]      <-> weight [O, I, *k]
     PointwiseConv  kernel [1,..,1, I, O]  <-> weight [I, O]
     BatchNorm      scale, bias (params); mean, var (batch_stats)
+    Local*, LocallyConnected*   every parameter as it is, by its name
 
 Trees are nested dicts of numpy arrays (any mapping of array-likes loads).
+A bfloat16 leaf loads into a bfloat16 parameter, and a bfloat16 parameter
+comes out as a float32 array holding the same values.
 """
 
 from collections.abc import Mapping
@@ -42,6 +45,11 @@ def _entries(module, collection):
             yield (path + ('kernel',), w,
                    lambda a, ks=mod.kernel_size: a.reshape(*ks, *a.shape),
                    lambda a, s=tuple(w.shape): a.reshape(s))
+        elif collection == 'params' and getattr(mod, 'flax_same_layout',
+                                                 False):
+            for leaf, p in mod.named_parameters(recurse=False):
+                yield path + (leaf,), p, _same, _same
+            continue
         elif isinstance(mod, BatchNorm):
             names = (('scale', 'bias') if collection == 'params'
                      else ('mean', 'var'))
@@ -77,7 +85,10 @@ def load_flax_params(module, params, batch_stats=None):
             key = '/'.join(path)
             if path not in flat:
                 raise KeyError(f'{collection}: no entry {key}')
-            a = np.array(from_flax(np.asarray(flat[path])), order='C')
+            a = np.asarray(flat[path])
+            if a.dtype.name == 'bfloat16':  # numpy's bfloat16 extension
+                a = a.astype(np.float32)
+            a = np.array(from_flax(a), order='C')
             if a.shape != tuple(t.shape):
                 raise ValueError(f'{collection}/{key}: shape {a.shape} does '
                                  f'not fit {tuple(t.shape)}')
@@ -102,6 +113,8 @@ def to_flax_params(module, collection='params', grad=False):
         for k in path[:-1]:
             node = node.setdefault(k, {})
         # a copy: a CPU tensor's .numpy() shares its storage
-        node[path[-1]] = np.array(to_flax(src.detach().cpu().numpy()),
-                                  order='C', copy=True)
+        src = src.detach().cpu()
+        if src.dtype == torch.bfloat16:
+            src = src.float()
+        node[path[-1]] = np.array(to_flax(src.numpy()), order='C', copy=True)
     return tree

@@ -14,6 +14,10 @@ the kernel.
     separable_blur3d — the separable 3-D SAME blur K6 (`blur.py`,
         `blur_cuda.py`).
     resize_separable, interp_matrix — per-axis resize (`resize.py`).
+    lc_transposed, keras_to_transposed, transposed_to_keras — the plain
+        locally-connected conv with transposed weights (`lc_tap.py`).
+    lc_transposed_pallas, lc3d_pallas — the JAX names of the LC kernels
+        K7 (forward), K8 (dk) and K9 (dx) (`lc_cuda.py`).
 """
 
 from neurite_tpu_torch.ops.pool import max_pool  # noqa: F401
@@ -25,4 +29,10 @@ from neurite_tpu_torch.ops.warp import (  # noqa: F401
 from neurite_tpu_torch.ops.blur import separable_blur3d  # noqa: F401
 from neurite_tpu_torch.ops.resize import (  # noqa: F401
     interp_matrix, resize_separable,
+)
+from neurite_tpu_torch.ops.lc_tap import (  # noqa: F401
+    keras_to_transposed, lc_transposed, transposed_to_keras,
+)
+from neurite_tpu_torch.ops.lc_cuda import (  # noqa: F401
+    lc3d_pallas, lc_transposed_pallas,
 )

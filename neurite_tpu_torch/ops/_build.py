@@ -35,6 +35,7 @@ launches = collections.Counter()
 
 _vp, _i64, _int, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     'neurite_pool2_fwd_f32': [_vp, _vp] + [_i64] * 5 + [_vp],
     'neurite_pool2_fwd_bf16': [_vp, _vp] + [_i64] * 5 + [_vp],
@@ -45,6 +46,9 @@ _SIGNATURES = {
     'neurite_interpn3d_f32': [_vp, _vp, _vp] + [_i64] * 6 + [_int, _int, _f32,
                                                              _vp],
     'neurite_blur_axis_f32': [_vp, _vp, _vp] + [_i64] * 3 + [_int] * 3 + [_vp],
+    'neurite_lc_fwd': [_vp, _vp, _vp, _i64p, _int, _int, _vp],
+    'neurite_lc_dk': [_vp, _vp, _vp, _i64p, _int, _int, _vp],
+    'neurite_lc_dx': [_vp, _vp, _vp, _i64p, _int, _int, _int, _vp],
 }
 
 

@@ -1,0 +1,303 @@
+// Locally-connected (unshared-weight) 3-D convolution, stride 1, 'same' or
+// 'valid' padding: K7 forward, K8 kernel cotangent (dk), K9 input cotangent
+// (dx), for float32 or bfloat16 x and weights (every load widened to f32).
+//
+// Replaces these TPU kernels:
+// - K7: neurite_tpu/ops/pallas_lc2.py `_fwd_kernel` (pallas_call of
+//   `_pallas_fwd`, :230) and neurite_tpu/ops/pallas_lc.py `_fwd_kernel`
+//   (pallas_call of `_run_fwd`, :188);
+// - K8: pallas_lc2.py `_dk_kernel` (`_pallas_dk`, :263) and pallas_lc.py
+//   `_dk_kernel` (`_run_dk`, :220);
+// - K9: pallas_lc.py `_dx_kernel` (`_run_dx`, :252), and the v2 path's dx,
+//   which the JAX package leaves to XLA (`lc_tap.lc_transposed_dx`).
+// The two Pallas versions differ only in the weight layout, so each kernel
+// here takes the weights as element strides (s_o, s_t, s_v) of their
+// [O, prod(k)*C, V] view: the transposed layout [O, TC, V] is
+// (TC*V, V, 1) and the keras layout [V, TC, O] is (1, O, TC*O).
+//
+// What bounds them on the card: device memory. Each weight is used once per
+// pass (one multiply-add a weight), so at the config #3 head (x [160^3, 4]
+// bf16, weights [1, 108, 160^3] bf16) the 884.7 MB weight stream is nearly
+// all of each kernel's bytes. The design keeps that stream read (K7, K9) or
+// written (K8) once and coalesced: one thread per voxel, neighbouring threads
+// on neighbouring voxels, so each tap row of the transposed weights is one
+// contiguous run per warp. x is channels-last (8 bytes a voxel at C=4 bf16)
+// and its 27-fold reuse is left to L1/L2. Zero padding is a per-axis bounds
+// test on the input index, not a padded copy and not the v1 kernel's
+// flat-shift masks. Each thread walks all taps of its voxel, so its voxel
+// coordinates are decomposed once (32-bit: a volume has < 2^31 voxels; weight
+// offsets are int64, since O*TC*V passes 2^31), and K8 and K9 handle four
+// channels of a tap together, so their loads are in flight together. A
+// simple kernel first: staging x's halo in shared memory and a vectorized or
+// cp.async weight stream are later work.
+//
+// Semantics, exactly as the plain versions (ops/lc_tap.py):
+// - K7: y[b, v, o] = sum over taps t, then channels c, of
+//   f32(k[o, t*C+c, v]) * f32(x_tap), the first term then acc + term; a tap
+//   in the padding multiplies 0 (as the padded copy does). y is f32.
+// - K8: dk[o, t*C+c, v] = sum over b, left to right, of g[b, v, o] * x_tap,
+//   in f32, cast once to the weights' dtype (round to nearest even). At B=1
+//   this is the product rounded once, as pallas_lc2.py writes it; at B>1 the
+//   batch fold of pallas_lc2.py:316-320 without an f32 [O, TC, V] temporary.
+// - K9: dx[b, u, c] = sum over taps t (in order) whose output voxel
+//   v = u - offs_t + pad lies inside, of m = sum over o (in order) of
+//   k[o, t*C+c, v] * g[b, v, o]; with `round_q` each product is first rounded
+//   to the weights' dtype (the v1 q, pallas_lc.py:292). The sum starts at
+//   +0 and is rounded once to x's dtype, written by the kernel.
+// Products and sums use __fmul_rn and __fadd_rn, so nvcc cannot contract them
+// into FMAs: the kernels equal the plain versions bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+struct Geo {
+  int64_t B, D, H, W, C;  // x [B, D, H, W, C], channels-last, contiguous
+  int64_t Do, Ho, Wo, O;  // y and g [B, Do, Ho, Wo, O], contiguous
+  int64_t kz, ky, kx;     // kernel size
+  int64_t pz, py, px;     // low padding ((k-1)/2 for 'same', 0 for 'valid')
+  int64_t s_o, s_t, s_v;  // element strides of the weights' [O, TC, V] view
+};
+
+// Channels handled together by a K8 or K9 thread: their loads are issued
+// together.
+constexpr int kChans = 4;
+
+// One thread per output voxel v (blockIdx.y: the batch item).
+template <typename TX, typename TK>
+__global__ void lc_fwd_kernel(const TX* __restrict__ x,
+                              const TK* __restrict__ k, float* __restrict__ y,
+                              Geo g) {
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Vo = Wo * Ho * (int)g.Do;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= Vo) return;
+  const int64_t b = blockIdx.y;
+  const int wo = v % Wo, ho = (v / Wo) % Ho, zo = v / (Wo * Ho);
+  const int D = (int)g.D, H = (int)g.H, W = (int)g.W;
+  const TX* xb = x + b * g.D * g.H * g.W * g.C;
+  for (int64_t o = 0; o < g.O; ++o) {
+    const TK* kv = k + o * g.s_o + v * g.s_v;
+    float acc = -0.f;  // -0 + p == p for every p: the first term starts it
+    int64_t tc = 0;
+    for (int tz = 0; tz < (int)g.kz; ++tz) {
+      const int zi = zo + tz - (int)g.pz;
+      const bool okz = zi >= 0 && zi < D;
+      for (int ty = 0; ty < (int)g.ky; ++ty) {
+        const int yi = ho + ty - (int)g.py;
+        const bool oky = okz && yi >= 0 && yi < H;
+        for (int tx = 0; tx < (int)g.kx; ++tx) {
+          const int xi = wo + tx - (int)g.px;
+          const bool ok = oky && xi >= 0 && xi < W;
+          const TX* xp = xb + ((int64_t)(zi * H + yi) * W + xi) * g.C;
+#pragma unroll 4
+          for (int64_t c = 0; c < g.C; ++c, ++tc) {
+            const float xv = ok ? to_f32(xp[c]) : 0.f;
+            acc = __fadd_rn(acc, __fmul_rn(to_f32(kv[tc * g.s_t]), xv));
+          }
+        }
+      }
+    }
+    y[(b * Vo + v) * g.O + o] = acc;
+  }
+}
+
+// One thread per output voxel v: every tap row of its weights, kChans
+// channels at a time.
+template <typename TX, typename TK>
+__global__ void lc_dk_kernel(const float* __restrict__ gr,
+                             const TX* __restrict__ x, TK* __restrict__ dk,
+                             Geo g) {
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Vo = Wo * Ho * (int)g.Do;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= Vo) return;
+  const int wo = v % Wo, ho = (v / Wo) % Ho, zo = v / (Wo * Ho);
+  const int D = (int)g.D, H = (int)g.H, W = (int)g.W;
+  const int64_t xstride = g.D * g.H * g.W * g.C;
+  TK* dv = dk + v * g.s_v;
+  for (int tz = 0; tz < (int)g.kz; ++tz) {
+    const int zi = zo + tz - (int)g.pz;
+    const bool okz = zi >= 0 && zi < D;
+    for (int ty = 0; ty < (int)g.ky; ++ty) {
+      const int yi = ho + ty - (int)g.py;
+      const bool oky = okz && yi >= 0 && yi < H;
+      for (int tx = 0; tx < (int)g.kx; ++tx) {
+        const int xi = wo + tx - (int)g.px;
+        const bool ok = oky && xi >= 0 && xi < W;
+        const int64_t xoff = ((int64_t)(zi * H + yi) * W + xi) * g.C;
+        const int64_t t = (tz * g.ky + ty) * g.kx + tx;
+        for (int64_t c0 = 0; c0 < g.C; c0 += kChans) {
+          for (int64_t o = 0; o < g.O; ++o) {
+            float acc[kChans];
+#pragma unroll
+            for (int j = 0; j < kChans; ++j) acc[j] = -0.f;
+            for (int64_t b = 0; b < g.B; ++b) {
+              const float gv = gr[(b * Vo + v) * g.O + o];
+              const TX* xp = x + b * xstride + xoff + c0;
+#pragma unroll
+              for (int j = 0; j < kChans; ++j) {
+                if (c0 + j < g.C) {
+                  const float xv = ok ? to_f32(xp[j]) : 0.f;
+                  acc[j] = __fadd_rn(acc[j], __fmul_rn(gv, xv));
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kChans; ++j) {
+              if (c0 + j < g.C)
+                dv[(t * g.C + c0 + j) * g.s_t + o * g.s_o] =
+                    from_f32<TK>(acc[j]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// One thread per input voxel u (blockIdx.y: the batch item): its C
+// cotangents, kChans channels at a time.
+template <typename TX, typename TK>
+__global__ void lc_dx_kernel(const float* __restrict__ gr,
+                             const TK* __restrict__ k, TX* __restrict__ dx,
+                             Geo g, int round_q) {
+  const int W = (int)g.W, H = (int)g.H, V = W * H * (int)g.D;
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= V) return;
+  const int64_t b = blockIdx.y;
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Do = (int)g.Do;
+  const int ux = u % W, uy = (u / W) % H, uz = u / (W * H);
+  const float* gb = gr + b * (int64_t)Wo * Ho * Do * g.O;
+  for (int64_t c0 = 0; c0 < g.C; c0 += kChans) {
+    float acc[kChans];
+#pragma unroll
+    for (int j = 0; j < kChans; ++j) acc[j] = 0.f;
+    for (int tz = 0; tz < (int)g.kz; ++tz) {
+      const int vz = uz - tz + (int)g.pz;
+      if (vz < 0 || vz >= Do) continue;
+      for (int ty = 0; ty < (int)g.ky; ++ty) {
+        const int vy = uy - ty + (int)g.py;
+        if (vy < 0 || vy >= Ho) continue;
+        for (int tx = 0; tx < (int)g.kx; ++tx) {
+          const int vx = ux - tx + (int)g.px;
+          if (vx < 0 || vx >= Wo) continue;
+          const int64_t v = (int64_t)(vz * Ho + vy) * Wo + vx;
+          const int64_t t = (tz * g.ky + ty) * g.kx + tx;
+          const TK* kp = k + (t * g.C + c0) * g.s_t + v * g.s_v;
+          const float* gp = gb + v * g.O;
+          float m[kChans];
+#pragma unroll
+          for (int j = 0; j < kChans; ++j) m[j] = -0.f;
+          for (int64_t o = 0; o < g.O; ++o) {
+            const float gv = gp[o];
+#pragma unroll
+            for (int j = 0; j < kChans; ++j) {
+              if (c0 + j < g.C) {
+                float p = __fmul_rn(to_f32(kp[j * g.s_t + o * g.s_o]), gv);
+                if (round_q) p = to_f32(from_f32<TK>(p));
+                m[j] = __fadd_rn(m[j], p);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kChans; ++j) acc[j] = __fadd_rn(acc[j], m[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kChans; ++j) {
+      if (c0 + j < g.C) dx[(b * V + u) * g.C + c0 + j] = from_f32<TX>(acc[j]);
+    }
+  }
+}
+
+Geo make_geo(const int64_t* a) {
+  return Geo{a[0],  a[1],  a[2],  a[3],  a[4],  a[5],  a[6],  a[7],  a[8],
+             a[9],  a[10], a[11], a[12], a[13], a[14], a[15], a[16], a[17]};
+}
+
+constexpr int kThreads = 256;
+
+unsigned blocks_for(int64_t n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <typename TX, typename TK>
+void fwd(const void* x, const void* k, float* y, const Geo& g,
+         cudaStream_t s) {
+  const dim3 grid(blocks_for(g.Do * g.Ho * g.Wo), (unsigned)g.B);
+  lc_fwd_kernel<TX, TK><<<grid, kThreads, 0, s>>>((const TX*)x, (const TK*)k,
+                                                  y, g);
+}
+
+template <typename TX, typename TK>
+void dkk(const float* gr, const void* x, void* dk, const Geo& g,
+         cudaStream_t s) {
+  lc_dk_kernel<TX, TK><<<blocks_for(g.Do * g.Ho * g.Wo), kThreads, 0, s>>>(
+      gr, (const TX*)x, (TK*)dk, g);
+}
+
+template <typename TX, typename TK>
+void dxk(const float* gr, const void* k, void* dx, const Geo& g, int round_q,
+         cudaStream_t s) {
+  const dim3 grid(blocks_for(g.D * g.H * g.W), (unsigned)g.B);
+  lc_dx_kernel<TX, TK><<<grid, kThreads, 0, s>>>(gr, (const TK*)k, (TX*)dx,
+                                                 g, round_q);
+}
+
+}  // namespace
+
+extern "C" {
+
+// geo: the 18 int64 fields of Geo, in order. x_bf16 / k_bf16 pick the
+// dtypes of x and of the weights (bfloat16 when 1, float32 when 0). The
+// caller keeps each volume under 2^31 voxels and B under 65536.
+int neurite_lc_fwd(const void* x, const void* k, float* y, const int64_t* geo,
+                   int x_bf16, int k_bf16, cudaStream_t stream) {
+  const Geo g = make_geo(geo);
+  if (g.B * g.Do * g.Ho * g.Wo == 0) return 0;
+  if (x_bf16 && k_bf16) fwd<bf16, bf16>(x, k, y, g, stream);
+  else if (x_bf16) fwd<bf16, float>(x, k, y, g, stream);
+  else if (k_bf16) fwd<float, bf16>(x, k, y, g, stream);
+  else fwd<float, float>(x, k, y, g, stream);
+  return (int)cudaGetLastError();
+}
+
+int neurite_lc_dk(const float* gr, const void* x, void* dk, const int64_t* geo,
+                  int x_bf16, int k_bf16, cudaStream_t stream) {
+  const Geo g = make_geo(geo);
+  if (g.Do * g.Ho * g.Wo == 0) return 0;
+  if (x_bf16 && k_bf16) dkk<bf16, bf16>(gr, x, dk, g, stream);
+  else if (x_bf16) dkk<bf16, float>(gr, x, dk, g, stream);
+  else if (k_bf16) dkk<float, bf16>(gr, x, dk, g, stream);
+  else dkk<float, float>(gr, x, dk, g, stream);
+  return (int)cudaGetLastError();
+}
+
+int neurite_lc_dx(const float* gr, const void* k, void* dx, const int64_t* geo,
+                  int x_bf16, int k_bf16, int round_q, cudaStream_t stream) {
+  const Geo g = make_geo(geo);
+  if (g.B * g.D * g.H * g.W == 0) return 0;
+  if (x_bf16 && k_bf16) dxk<bf16, bf16>(gr, k, dx, g, round_q, stream);
+  else if (x_bf16) dxk<bf16, float>(gr, k, dx, g, round_q, stream);
+  else if (k_bf16) dxk<float, bf16>(gr, k, dx, g, round_q, stream);
+  else dxk<float, float>(gr, k, dx, g, round_q, stream);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

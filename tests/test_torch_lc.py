@@ -1,0 +1,283 @@
+"""
+The PyTorch port's locally-connected ops against the JAX package's.
+
+`ops.lc_tap` (the plain versions) and `ops.lc_cuda` (the kernels'
+autograd functions, whose CPU path is the plain version) against
+`neurite_tpu.ops.lc_tap` (forward and its hand-written VJP), the v2 Pallas
+kernel (`pallas_lc2.lc_transposed_pallas`) and the v1 Pallas kernel
+(`pallas_lc.lc3d_pallas`), both in interpret mode. Each JAX reference is
+computed once (module-scoped caches): an interpret call costs seconds here.
+
+Tolerances: float32 within rtol 1e-5 and atol 1e-5 (the sums run in
+another order than XLA's); bfloat16 outputs within one bf16 ulp of JAX's,
+and dk at B=1 equal (both round the same float32 product once). On the
+card (`cuda` tests) the kernels must equal the plain versions.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip('torch')
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from neurite_tpu.ops import lc_tap as jtap  # noqa: E402
+from neurite_tpu.ops import pallas_lc as jv1  # noqa: E402
+from neurite_tpu.ops import pallas_lc2 as jv2  # noqa: E402
+from neurite_tpu_torch.ops import _build, lc_cuda, lc_tap  # noqa: E402
+
+torch.set_num_threads(1)
+
+# (B, spatial, C, O, kernel_size, padding): every value of each knob
+CASES = [
+    (1, (5, 6, 7), 1, 1, (3, 3, 3), 'same'),
+    (3, (5, 6, 7), 3, 2, (3, 3, 3), 'valid'),
+    (1, (6, 5, 4), 3, 1, (3, 1, 3), 'valid'),
+    (3, (4, 6, 5), 1, 2, (3, 1, 3), 'same'),
+    (1, (5, 5, 6), 3, 2, (3, 3, 3), 'same'),
+    (3, (6, 4, 5), 1, 1, (3, 3, 3), 'valid'),
+]
+
+
+def _inputs(seed, B, sp, C, O, ks, padding, bf16=False):
+    rng = np.random.default_rng(seed)
+    out = jtap._out_shape(sp, ks, padding)
+    x = rng.normal(size=(B, *sp, C)).astype(np.float32)
+    k = rng.normal(size=(O, int(np.prod(ks)) * C, int(np.prod(out))))
+    g = rng.normal(size=(B, *out, O)).astype(np.float32)
+    if bf16:  # values that bfloat16 holds exactly
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        k = np.asarray(jnp.asarray(k, jnp.bfloat16).astype(jnp.float32))
+    return x, k.astype(np.float32), g
+
+
+def _jax_vjp(fn, x, k, g, dtype=jnp.float32):
+    y, vjp = jax.vjp(fn, jnp.asarray(x, dtype), jnp.asarray(k, dtype))
+    dx, dk = vjp(jnp.asarray(g, y.dtype))
+    return [np.asarray(a.astype(jnp.float32)) for a in (y, dx, dk)]
+
+
+def _port_grads(fn, x, k, g, dtype=torch.float32):
+    xt = torch.tensor(x, dtype=dtype, requires_grad=True)
+    kt = torch.tensor(k, dtype=dtype, requires_grad=True)
+    y = fn(xt, kt)
+    dx, dk = torch.autograd.grad(y, (xt, kt), torch.from_numpy(g).to(y.dtype))
+    assert dx.dtype == dtype and dk.dtype == dtype and y.dtype == torch.float32
+    return [a.detach().float().numpy() for a in (y, dx, dk)]
+
+
+def _close(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _bf16_ulp(v):
+    """One bfloat16 ulp at each |v| (the spacing of its binade)."""
+    a = np.maximum(np.abs(v), np.float32(2. ** -126))
+    return 2. ** (np.floor(np.log2(a)) - 7)
+
+
+def _within_ulp(got, want):
+    assert np.all(np.abs(got - want) <= _bf16_ulp(want)), \
+        float(np.max(np.abs(got - want) / _bf16_ulp(want)))
+
+
+def _bf16(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.fixture(scope='module')
+def tap_refs():
+    return {}
+
+
+@pytest.mark.parametrize('case', CASES, ids=str)
+def test_plain_matches_jax_lc_tap(tap_refs, case):
+    """Forward, dx and dk of `lc_tap.lc_transposed` and of the kernels'
+    autograd function (CPU: the plain versions) against JAX's lc_tap."""
+    B, sp, C, O, ks, padding = case
+    x, k, g = _inputs(1, *case)
+    if case not in tap_refs:
+        tap_refs[case] = _jax_vjp(
+            lambda a, b: jtap.lc_transposed(a, b, ks, padding), x, k, g)
+    want = tap_refs[case]
+    before = sum(_build.launches.values())
+    _close(_port_grads(lambda a, b: lc_tap.lc_transposed(a, b, ks, padding),
+                       x, k, g), want)
+    _close(_port_grads(lambda a, b: lc_cuda.lc_transposed_pallas(
+        a, b, ks, padding=padding), x, k, g), want)
+    assert sum(_build.launches.values()) == before  # CPU: nothing launched
+
+
+def test_dx_dk_are_the_plain_functions():
+    """`lc_transposed_dx`/`_dk` on their own equal JAX's (the hand VJP)."""
+    B, sp, C, O, ks, padding = CASES[1]
+    x, k, g = _inputs(2, *CASES[1])
+    dx = lc_tap.lc_transposed_dx(torch.from_numpy(g), torch.from_numpy(k),
+                                 ks, padding, x.shape)
+    dk = lc_tap.lc_transposed_dk(torch.from_numpy(g), torch.from_numpy(x),
+                                 ks, padding)
+    jdx = jtap.lc_transposed_dx(jnp.asarray(g), jnp.asarray(k), ks, padding,
+                                x.shape)
+    jdk = jtap.lc_transposed_dk(jnp.asarray(g), jnp.asarray(x), ks, padding)
+    assert dx.dtype == dk.dtype == torch.float32
+    _close([dx.numpy(), dk.numpy()], [np.asarray(jdx), np.asarray(jdk)])
+
+
+def test_layout_round_trip():
+    k = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(30, 12, 2)).astype(np.float32))
+    t = lc_tap.keras_to_transposed(k)
+    assert t.shape == (2, 12, 30) and t.is_contiguous()
+    assert torch.equal(lc_tap.transposed_to_keras(t), k)
+    want = jtap.keras_to_transposed(jnp.asarray(k.numpy()))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(want))
+
+
+@pytest.fixture(scope='module')
+def v2_refs():
+    """The v2 Pallas kernel in interpret mode: f32 (C=3, O=2) and bf16
+    (C=3, O=1), B=1, SAME, at [4, 8, 8]."""
+    out = {}
+    for name, O, dt in (('f32', 2, jnp.float32), ('bf16', 1, jnp.bfloat16)):
+        case = (1, (4, 8, 8), 3, O, (3, 3, 3), 'same')
+        x, k, g = _inputs(4, *case, bf16=name == 'bf16')
+        out[name] = (case, (x, k, g), _jax_vjp(
+            lambda a, b: jv2.lc_transposed_pallas(a, b, (3, 3, 3), True),
+            x, k, g, dt))
+    return out
+
+
+def test_matches_pallas_v2_f32(v2_refs):
+    (B, sp, C, O, ks, padding), (x, k, g), want = v2_refs['f32']
+    _close(_port_grads(lambda a, b: lc_cuda.lc_transposed_pallas(
+        a, b, ks, interpret=True), x, k, g), want)
+
+
+def test_matches_pallas_v2_bf16(v2_refs):
+    """bf16 x and kernel: dk equal (one rounding of the same product), the
+    forward and dx within one bf16 ulp after their casts."""
+    (B, sp, C, O, ks, padding), (x, k, g), want = v2_refs['bf16']
+    y, dx, dk = _port_grads(lambda a, b: lc_cuda.lc_transposed_pallas(
+        a, b, ks), x, k, g, torch.bfloat16)
+    np.testing.assert_array_equal(dk, want[2])
+    _within_ulp(_bf16(y), _bf16(want[0]))
+    _within_ulp(dx, want[1])
+    # the plain function of the layers' non-CUDA route: the same numbers
+    p = _port_grads(lambda a, b: lc_tap.lc_transposed(a, b, ks, padding),
+                    x, k, g, torch.bfloat16)
+    np.testing.assert_array_equal(p[2], dk)
+    np.testing.assert_array_equal(p[0], y)
+
+
+@pytest.fixture(scope='module')
+def v1_refs():
+    """The v1 Pallas kernel (keras layout, O=1, B=1) in interpret mode at
+    [4, 8, 8], C=3: f32 and bf16."""
+    out = {}
+    shape3, ks, C = (4, 8, 8), (3, 3, 3), 3
+    for name, dt in (('f32', jnp.float32), ('bf16', jnp.bfloat16)):
+        x, k, g = _inputs(5, 1, shape3, C, 1, ks, 'same',
+                          bf16=name == 'bf16')
+        xf = x.reshape(-1, C)
+        k2 = np.ascontiguousarray(k[0].T)                 # [V, K]
+        gf = g.reshape(-1, 1)
+        out[name] = ((xf, k2, gf), _jax_vjp(
+            lambda a, b: jv1.lc3d_pallas(a, b, shape3, ks, True),
+            xf, k2, gf, dt))
+    return out, shape3, ks
+
+
+@pytest.mark.parametrize('name', ['f32', 'bf16'])
+def test_matches_pallas_v1(v1_refs, name):
+    """lc3d_pallas (K7, K8, K9 with keras strides; here their plain
+    versions): bf16 dx depends on each g*k product being rounded to bf16
+    before the sum (the v1 q)."""
+    refs, shape3, ks = v1_refs
+    (xf, k2, gf), want = refs[name]
+    dt = torch.float32 if name == 'f32' else torch.bfloat16
+    got = _port_grads(lambda a, b: lc_cuda.lc3d_pallas(a, b, shape3, ks,
+                                                       True), xf, k2, gf, dt)
+    if name == 'f32':
+        _close(got, want)
+        return
+    y, dx, dk = got
+    np.testing.assert_array_equal(dk, want[2])
+    np.testing.assert_allclose(y, want[0], rtol=1e-5, atol=1e-5)
+    _within_ulp(dx, want[1])
+    # without rounding q the sums differ: the test sees the rounding
+    x5 = torch.from_numpy(xf).reshape(1, *shape3, -1)
+    kv = torch.from_numpy(k2).to(dt).t()[None]
+    g5 = torch.from_numpy(gf).reshape(1, *shape3, 1)
+    exact = lc_cuda.dx_plain(g5, kv, ks, 'same', tuple(x5.shape), dt)
+    rounded = lc_cuda.dx_plain(g5, kv, ks, 'same', tuple(x5.shape), dt, True)
+    np.testing.assert_array_equal(rounded.float().reshape(dx.shape).numpy(),
+                                  dx)
+    assert not torch.equal(exact, rounded)
+
+
+def test_supported_and_wrapper_checks():
+    assert lc_cuda.supported((1, 160, 160, 160, 4), (3, 3, 3), 1, (1, 1, 1),
+                             'same')
+    # no TPU gates: odd H, 2 filters x 16 channels, even kernels, 'valid'
+    assert lc_cuda.supported((2, 5, 7, 9, 16), (2, 3, 4), 2, (1, 1, 1),
+                             'valid')
+    assert not lc_cuda.supported((1, 8, 8, 8, 3), (3, 3, 3), 1, (2, 2, 2),
+                                 'same')
+    assert not lc_cuda.supported((1, 8, 8, 3), (3, 3), 1, (1, 1), 'same')
+    assert not lc_cuda.supported((1, 2, 8, 8, 3), (3, 3, 3), 1, (1, 1, 1),
+                                 'valid')
+    assert not lc_cuda.supported((1, 2048, 1024, 1024, 1), (3, 3, 3), 1,
+                                 (1, 1, 1), 'same')    # 2^31 voxels
+    assert not lc_cuda.supported((65536, 4, 4, 4, 1), (3, 3, 3), 1,
+                                 (1, 1, 1), 'same')
+    x = torch.zeros(1, 4, 4, 4, 2)
+    k = torch.zeros(1, 54, 64)
+    with pytest.raises(ValueError, match='CUDA'):
+        lc_cuda.fwd_cuda(x, k, (3, 3, 3), 'same')
+    with pytest.raises(ValueError, match='CUDA'):
+        lc_cuda.dk_cuda(torch.zeros(1, 4, 4, 4, 1), x, (3, 3, 3), 'same',
+                        torch.float32)
+    with pytest.raises(ValueError, match='CUDA'):
+        lc_cuda.dx_cuda(torch.zeros(1, 4, 4, 4, 1), k, (3, 3, 3), 'same',
+                        (1, 4, 4, 4, 2), torch.float32)
+    with pytest.raises(ValueError, match='fit'):
+        lc_cuda._check(x, torch.zeros(1, 27, 64), (3, 3, 3), 'same')
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        lc_cuda._check(x.double(), k, (3, 3, 3), 'same')
+    assert not _build.launches['lc_fwd']
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', CASES[:3], ids=str)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_kernels_equal_plain_on_card(cuda, case, dtype):
+    """K7, K8 and K9 against their plain versions on the card: equal."""
+    B, sp, C, O, ks, padding = case
+    x, k, g = (torch.from_numpy(a).to(cuda) for a in _inputs(6, *case))
+    x, k = x.to(dtype), k.to(dtype)
+    for keras in (False, True):
+        kern = k.permute(2, 1, 0).contiguous() if keras else k
+        kv = lc_cuda._weight_view(kern, keras)
+        pairs = [
+            (lc_cuda.fwd_cuda(x, kv, ks, padding),
+             lc_cuda.fwd_plain(x, kv, ks, padding)),
+            (lc_cuda.dk_cuda(g, x, ks, padding, dtype, keras),
+             lc_cuda.dk_plain(g, x, ks, padding, dtype, keras)),
+            (lc_cuda.dx_cuda(g, kv, ks, padding, tuple(x.shape), dtype,
+                             keras),
+             lc_cuda.dx_plain(g, kv, ks, padding, tuple(x.shape), dtype,
+                              keras)),
+        ]
+        torch.cuda.synchronize()
+        for a, b in pairs:
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
