@@ -3,11 +3,12 @@ Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Drives the port's three paths through their public entry points: the
+Drives the port's four paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
 nb_conv_per_level=2, conv_size=3, nb_labels=4, 128^3, batch 1, SoftDice,
-Adam 1e-3), the config #5 synthesis -> UNet training step and the config #3
-UNet -> LocallyConnected3D head training step; and checks every
+Adam 1e-3), the config #5 synthesis -> UNet training step, the config #3
+UNet -> LocallyConnected3D head training step and the MI registration step
+(`benchmarks/mi_context.py:32-62`); and checks every
 hand-written kernel on them against its plain PyTorch version, each path's
 launch counts set to 0 just before it and read just after. Phases:
 
@@ -61,7 +62,23 @@ launch counts set to 0 just before it and read just after. Phases:
      LocallyConnected3D(filters=1, kernel_size=3, 'same', bf16 weights
      [1, 108, 160^3]), MSE, Adam 1e-4, 160^3, 10 steps: finite losses,
      launch counts of K1, K2 and K7-K9 exactly those of 10 steps, median
-     step ms, vol/s, peak memory; a profile of 3 steps.
+     step ms, vol/s, peak memory; a profile of 3 steps;
+ 13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
+     16 bins and centers from the data, at [2, 1000], [1, 128^3 + 37], 8
+     bins clipped to [0, 1] on inputs in [-1, 2], and with one NaN voxel:
+     within 1e-5 of the largest magnitude, NaN where the plain version has
+     it, two calls bit-equal; `MIHistograms`' dx and dy on the K10 route vs
+     the plain forward; the materialized route's time (two soft_quantize
+     maps and a bmm) as context;
+ 14. one MI registration step at 64^3 (the field at +-2 voxels) on the card
+     (K4, K10) and on the CPU (plain forms), both on the kernel route
+     (`volumes_fused(impl='pallas')`): losses within rtol 1e-5, the field
+     gradient within 1e-4 of its largest magnitude;
+ 15. MI registration at 128^3 (moving/fixed blob pair, field [1, 128^3, 3]
+     from zero, clamp +-3, `MutualInformation(nb_bins=16)`, Adam 1e-2),
+     10 steps: finite, falling losses, launches exactly K10 10 and K4 10,
+     no host sync in a step, median step ms, pairs/s, peak memory, a
+     profile of 3 steps, and the same steps through `MI.volumes` (twin).
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -91,9 +108,9 @@ import torch
 
 import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
-from neurite_tpu_torch.ops import (_build, blur, dice_red, lc_cuda, pool,
-                                   pool_cuda, warp_cuda)
-from neurite_tpu_torch.utils import core
+from neurite_tpu_torch.ops import (_build, blur, dice_red, lc_cuda, mi_hist,
+                                   mi_hist_cuda, pool, pool_cuda, warp_cuda)
+from neurite_tpu_torch.utils import core, spatial
 
 VOL = 128
 NB_LABELS = 4
@@ -125,10 +142,15 @@ KERNELS = {
               'neurite_tpu/ops/pallas_lc.py:220'),
     'lc_dx': ('neurite_tpu_torch/ops/csrc/lc.cu',
               'neurite_tpu/ops/pallas_lc.py:252'),
+    'mi_hist': ('neurite_tpu_torch/ops/csrc/mi_hist.cu',
+                'neurite_tpu/ops/mi_hist.py:90'),
 }
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
+MI_BINS = 16        # the registration path's MutualInformation(nb_bins=16)
+REG_CHECK_VOL = 64  # its step on the card vs the plain CPU path
+REG_LR = 1e-2
 
 
 class Checks:
@@ -225,6 +247,14 @@ def max_abs_err(a, b):
     keep = ~(torch.isnan(a) | torch.isnan(b))
     d = (a.float() - b.float())[keep].abs()
     return float(d.max()) if d.numel() else 0.
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|, both where neither is NaN (0 if nowhere)."""
+    keep = ~(torch.isnan(a) | torch.isnan(b))
+    if not bool(keep.any()):
+        return 0.
+    return max_abs_err(a, b) / max(float(b[keep].abs().max()), 1e-30)
 
 
 def phase_device():
@@ -1042,6 +1072,269 @@ def phase_lc_train(checks, res):
         print(f'  config #3 profile not measured: {type(e).__name__}: {e}')
 
 
+def make_pair(size, seed=0):
+    """The registration pair: a 3-D version of
+    `examples/deformable_registration.py:25-37` (blobs at 0.45 and 0.55 of
+    the size, widths size*0.8 and size*1.2, 0.02 normal noise), values near
+    [0, 1] as the default MI alpha assumes; [1, size^3, 1] float32 numpy."""
+    rng = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(size)] * 3, indexing='ij'), -1)
+    moving = np.exp(-((grid - size * 0.45) ** 2).sum(-1) / (size * 0.8))
+    fixed = np.exp(-((grid - size * 0.55) ** 2).sum(-1) / (size * 1.2))
+    moving = moving + 0.02 * rng.normal(size=moving.shape)
+    fixed = fixed + 0.02 * rng.normal(size=fixed.shape)
+    return (moving.astype(np.float32)[None, ..., None],
+            fixed.astype(np.float32)[None, ..., None])
+
+
+def registration_loss(mi, moving, fixed, field, fused=True, impl='auto'):
+    """`benchmarks/mi_context.py:42-50`: warp `moving` by the field clamped
+    to +-3 voxels, minus the mean MI against `fixed` (`volumes_fused`, or
+    the materialized `volumes` twin)."""
+    warped = spatial.batch_transform(moving, torch.clamp(field, -3., 3.),
+                                     impl='window', max_disp=3.0)
+    if fused:
+        return -mi.volumes_fused(warped, fixed, impl=impl).mean()
+    return -mi.volumes(warped, fixed).mean()
+
+
+def mi_flops(n_vox, nb_bins):
+    """Float32 operations of the fused MI histograms: per voxel 2 B^2 for
+    the joint histogram, 2 B for the marginals and, per map and bin, a
+    subtract, a square, a scale and an exp."""
+    return n_vox * (2 * nb_bins ** 2 + 2 * nb_bins + 2 * 4 * nb_bins)
+
+
+def phase_mi(checks, res):
+    print('== 13. MI histograms K10 vs plain', flush=True)
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    r = res['mi_hist']
+    alpha = nt.metrics.MutualInformation(nb_bins=MI_BINS).soft_bin_alpha
+    alpha8 = nt.metrics.MutualInformation(nb_bins=8).soft_bin_alpha
+    moving, fixed = (torch.from_numpy(a).cuda().reshape(1, -1)
+                     for a in make_pair(VOL))
+    n = VOL ** 3
+
+    def rand(shape, lo=0., hi=1.):
+        return core.uniform(gen, shape, lo, hi, 'cuda')
+
+    def centers(v, nb=MI_BINS):
+        return core.linspace(v.min(), v.max(), nb)
+
+    unit = torch.linspace(0., 1., MI_BINS, device='cuda')
+    nan_x = moving.clone()
+    nan_x[0, 12345] = float('nan')
+    x2, y2 = rand((2, 1000)), rand((2, 1000))
+    xr, yr = rand((1, n + 37)), rand((1, n + 37))
+    xc, yc = rand((1, n), -1., 2.), rand((1, n), -1., 2.)
+    cases = [  # (name, x, y, cx, cy, alpha, min_clip, max_clip)
+        (f'path [1, {VOL}^3] B=16, centers from the data', moving, fixed,
+         centers(moving), centers(fixed), alpha, -np.inf, np.inf),
+        ('[2, 1000] B=16', x2, y2, unit, unit, alpha, -np.inf, np.inf),
+        (f'[1, {VOL}^3+37] B=16', xr, yr, unit, unit, alpha, -np.inf, np.inf),
+        (f'[1, {VOL}^3] B=8, clip [0, 1], inputs in [-1, 2]', xc, yc,
+         torch.linspace(0., 1., 8, device='cuda'),
+         torch.linspace(0., 1., 8, device='cuda'), alpha8, 0., 1.),
+        (f'path [1, {VOL}^3] B=16, one NaN voxel', nan_x, fixed,
+         unit, unit, alpha, -np.inf, np.inf),
+    ]
+    for i, (name, x, y, cx, cy, a, lo, hi) in enumerate(cases):
+        k = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
+        k2 = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
+        p = mi_hist._mi_histograms_plain(x, y, cx, cy, a, lo, hi)
+        torch.cuda.synchronize()
+        rel = max(rel_err(u, w) for u, w in zip(k, p))
+        nan_ok = all(torch.equal(torch.isnan(u), torch.isnan(w))
+                     for u, w in zip(k, p))
+        same = all(bit_equal(u, u2) for u, u2 in zip(k, k2))
+        n_nan = sum(int(torch.isnan(u).sum()) for u in k)
+        checks.check(f'mi_hist {name}', rel <= 1e-5 and nan_ok and same,
+                     f'max abs err / max |plain| {rel:.3g} (1e-5), NaN where '
+                     f'plain has it {nan_ok} ({n_nan} NaN), two calls '
+                     f'bit-equal {same}')
+        if i == 0:
+            r['max_abs_err'] = max(max_abs_err(u, w) for u, w in zip(k, p))
+
+    # MIHistograms' dx and dy on the K10 route against the plain forward
+    x, y, cx, cy = moving, fixed, centers(moving), centers(fixed)
+    w = [torch.randn(s, generator=gen, device='cuda')
+         for s in ((1, MI_BINS, MI_BINS), (1, MI_BINS), (1, MI_BINS))]
+    grads = []
+    for impl in ('pallas', 'plain'):
+        xi, yi = x.clone().requires_grad_(), y.clone().requires_grad_()
+        out = nt.ops.mi_histograms(xi, yi, cx, alpha, impl=impl,
+                                   bin_centers_y=cy)
+        grads.append(torch.autograd.grad(
+            sum((wi * o).sum() for wi, o in zip(w, out)), (xi, yi)))
+    torch.cuda.synchronize()
+    rel = max(rel_err(a, b) for a, b in zip(*grads))
+    checks.check('mi_hist backward (dx, dy) K10 route vs plain', rel <= 1e-5,
+                 f'max abs err / max |g| {rel:.3g} (1e-5)')
+
+    # times at the path's shape
+    k_ms = time_ms(lambda: mi_hist_cuda.mi_histograms_cuda(
+        x, y, cx, cy, alpha))
+    p_ms = time_ms(lambda: mi_hist._mi_histograms_plain(x, y, cx, cy, alpha))
+
+    def materialized():   # MutualInformation.maps' route: two maps, a bmm
+        xq = core.soft_quantize(x, cx, None, alpha)
+        yq = core.soft_quantize(y, cy, None, alpha)
+        return torch.bmm(xq.transpose(1, 2), yq)
+    m_ms = time_ms(materialized)
+    c_ms = call_ms(lambda: mi_hist_cuda.mi_histograms_cuda(
+        x, y, cx, cy, alpha))
+    nbytes = (2 * n + 2 * MI_BINS + MI_BINS ** 2 + 2 * MI_BINS) * 4
+    flops = mi_flops(n, MI_BINS)
+    r.update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+    add_bound(r, nbytes, flops)
+    print(f'  mi_hist [1, {VOL}^3] B={MI_BINS}: kernel {k_ms:.4f} ms, plain '
+          f'{p_ms:.4f} ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}; '
+          f'{nbytes} B, {flops} flop); one kernel call {c_ms:.4f} ms',
+          flush=True)
+    print(f'  materialized route (two soft_quantize maps [1, {VOL}^3, '
+          f'{MI_BINS}] and one bmm, no marginals): {m_ms:.4f} ms',
+          flush=True)
+
+
+def phase_reg_check(checks):
+    print(f'== 14. MI registration step at {REG_CHECK_VOL}^3: kernels vs '
+          f'the plain CPU path', flush=True)
+    moving, fixed = make_pair(REG_CHECK_VOL)
+    field0 = np.random.default_rng(1).uniform(
+        -2., 2., size=(1, *(REG_CHECK_VOL,) * 3, 3)).astype(np.float32)
+    mi = nt.metrics.MutualInformation(nb_bins=MI_BINS,
+                                      check_input_limits=False)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ('cuda', 'cpu'):
+            m, f = torch.from_numpy(moving).to(dev), torch.from_numpy(
+                fixed).to(dev)
+            field = torch.from_numpy(field0).to(dev).requires_grad_()
+            _build.launches.clear()
+            # the kernel route on both devices: K10 on the card, the plain
+            # forward on the CPU, one backward ('auto' would take the jnp
+            # route on the CPU, whose centers' gradient differs)
+            loss = registration_loss(mi, m, f, field, impl='pallas')
+            loss.backward()
+            runs[dev] = (float(loss.detach()), field.grad.cpu(),
+                         dict(_build.launches))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    (lk, gk, nk), (lp, gp, np_) = runs['cuda'], runs['cpu']
+    checks.check('MI registration launches', nk.get('mi_hist') == 1
+                 and nk.get('interpn') == 1 and not np_,
+                 f'card {nk}, CPU {np_}')
+    checks.check('MI registration loss card vs CPU',
+                 abs(lk - lp) <= 1e-5 * abs(lp),
+                 f'card {lk!r} CPU {lp!r} (rtol 1e-5)')
+    rel = rel_err(gk, gp)
+    checks.check('MI registration field gradient card vs CPU', rel <= 1e-4,
+                 f'max abs err / max |g| {rel:.3g} (1e-4)')
+
+
+def phase_reg_train(checks, res):
+    print(f'== 15. MI registration at {VOL}^3: {TRAIN_STEPS} Adam steps of '
+          f'the field', flush=True)
+    moving, fixed = (torch.from_numpy(a).cuda() for a in make_pair(VOL))
+    mi = nt.metrics.MutualInformation(nb_bins=MI_BINS,
+                                      check_input_limits=False)
+
+    def make_step(fused):
+        field = torch.zeros((1, VOL, VOL, VOL, 3), device='cuda',
+                            requires_grad=True)
+        opt = torch.optim.Adam([field], lr=REG_LR)
+
+        def step(i=None):
+            opt.zero_grad(set_to_none=True)
+            loss = registration_loss(mi, moving, fixed, field, fused)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return step
+
+    def run(step):
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return [float(v) for v in losses], times
+
+    step = make_step(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times = run(step)
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    checks.check('MI registration losses finite and falling',
+                 all(np.isfinite(losses)) and losses[-1] < losses[0],
+                 ' '.join(f'{v:.6f}' for v in losses))
+    for name in ('mi_hist', 'interpn'):
+        got = counts.get(name, 0)
+        checks.check(f'MI registration launches {name}',
+                     got == TRAIN_STEPS, f'{got} (expected 1 per step)')
+    res['mi_hist']['launches'] = counts.get('mi_hist', 0)
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
+          f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  pairs/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        step()
+        synced = ''
+    except RuntimeError as e:
+        synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    checks.check('MI registration step without host sync', not synced,
+                 synced or "sync debug mode 'error' raised nothing")
+
+    # where the time goes (readings, not checks): a profile of whole steps,
+    # then the device ms of the step's parts: the warp forward and its
+    # plain autograd backward, the MI loss forward and backward on a fixed
+    # warped volume, Adam on the field
+    field = torch.zeros((1, VOL, VOL, VOL, 3), device='cuda',
+                        requires_grad=True)
+    field.grad = torch.zeros_like(field)
+    g = torch.randn((1, VOL, VOL, VOL, 1), device='cuda') * 1e-3
+    warped = spatial.batch_transform(moving, field).detach()
+    opt = torch.optim.Adam([field], lr=REG_LR)
+
+    def mi_part():
+        w = warped.clone().requires_grad_()
+        return torch.autograd.grad(-mi.volumes_fused(w, fixed).mean(), w)
+    parts = {
+        'warp fwd+bwd': lambda: torch.autograd.grad(
+            spatial.batch_transform(moving, torch.clamp(field, -3., 3.)),
+            field, g),
+        'MI loss fwd+bwd': mi_part,
+        'Adam': opt.step,
+    }
+    try:
+        report_profile('MI registration step', step, TRAIN_STEPS)
+        print('  step parts, device ms: ' + '; '.join(
+            f'{k} {time_ms(fn):.4f}' for k, fn in parts.items()), flush=True)
+    except Exception as e:  # noqa: BLE001
+        print(f'  registration profile not measured: {type(e).__name__}: '
+              f'{e}')
+
+    # the twin: the same steps with the materialized maps (MI.volumes)
+    twin_losses, twin_times = run(make_step(False))
+    twin_ms = 1e3 * statistics.median(twin_times[WARMUP_STEPS:])
+    print(f'  twin through MI.volumes: step ms (median of steps '
+          f'{WARMUP_STEPS + 1}-{TRAIN_STEPS}) {twin_ms:.3f}; all: '
+          + ' '.join(f'{1e3 * t:.2f}' for t in twin_times)
+          + '; losses ' + ' '.join(f'{v:.6f}' for v in twin_losses),
+          flush=True)
+
+
 def report_profile(label, fn, first):
     """Wall time, device busy time and idle share of PROFILE_STEPS calls
     fn(first), fn(first + 1), ..., and the device time by kernel."""
@@ -1086,14 +1379,18 @@ def main():
     phase_lc(checks, res)
     phase_lc_check(checks)
     phase_lc_train(checks, res)
+    phase_mi(checks, res)
+    phase_reg_check(checks)
+    phase_reg_train(checks, res)
     print(f'card: {card}; kernel build {build_s:.3f} s; each kernel\'s ms, '
           f'plain_ms, library_ms and bound_ms sum its calls of one step: the '
           f'three bf16 pool shapes, 5 linear 64^3 and 1 nearest 128^3 '
           f'interpolations, 2 blurs of [3, 64^3] (41 taps) and one each of '
           f'[1, 128^3] (165 and 7 taps; library: three conv3d calls but for '
-          f'7 taps), one LC call each at the config #3 head (bf16); K1-K3 '
-          f'launches are the flagship run\'s, K4 and K6 config #5\'s, K7-K9 '
-          f'config #3\'s')
+          f'7 taps), one LC call each at the config #3 head (bf16), one MI '
+          f'histogram call at [1, 128^3] with 16 bins; K1-K3 launches are '
+          f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 config #3\'s, '
+          f'K10 the MI registration run\'s')
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}
                                   for r in res.values()]}))

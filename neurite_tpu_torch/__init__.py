@@ -18,6 +18,7 @@ from neurite_tpu_torch import ops  # noqa: F401
 from neurite_tpu_torch import layers  # noqa: F401
 from neurite_tpu_torch import metrics  # noqa: F401
 from neurite_tpu_torch import losses  # noqa: F401
+from neurite_tpu_torch import regularizers  # noqa: F401
 from neurite_tpu_torch import models  # noqa: F401
 from neurite_tpu_torch import training  # noqa: F401
 from neurite_tpu_torch import convert  # noqa: F401

@@ -1,11 +1,13 @@
 """
-Losses: negated/loss-form wrappers of the Dice metrics.
+Losses: negated/loss-form wrappers of the metrics.
 
-Counterpart of `neurite_tpu/losses.py:14-47` (reference
-`neurite/tf/losses.py:46-190`).
+Counterpart of `neurite_tpu/losses.py` (reference
+`neurite/tf/losses.py:46-246`).
 """
 
 from neurite_tpu_torch import metrics as _metrics
+from neurite_tpu_torch.metrics import l1, l2  # noqa: F401  (ref losses.py:32-33)
+from neurite_tpu_torch.metrics import MutualInformation  # noqa: F401  (ref losses.py:43)
 
 
 class Dice(_metrics.Dice):
@@ -42,3 +44,22 @@ class HardDice(Dice):
                          check_input_limits=check_input_limits,
                          laplace_smoothing=laplace_smoothing,
                          normalize=normalize, use_kernel=use_kernel)
+
+
+class CategoricalCrossentropy(_metrics.CategoricalCrossentropy):
+    """CCE loss alias (ref `losses.py:193-206`)."""
+
+    def loss(self, y_true, y_pred, sample_weight=None):
+        return self.cce(y_true, y_pred, sample_weight=sample_weight)
+
+
+class MeanSquaredErrorProb(_metrics.MeanSquaredErrorProb):
+    """MSE-prob loss alias (ref `losses.py:209-220`)."""
+
+    def loss(self, y_true, y_pred, sample_weight=None):
+        return self.mse(y_true, y_pred, sample_weight=sample_weight)
+
+
+def multiple_losses_decorator(losses, weights=None):
+    """Weighted sum of losses (ref `losses.py:227-246`)."""
+    return _metrics.multiple_metrics_decorator(losses, weights)

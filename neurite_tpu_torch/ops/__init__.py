@@ -18,6 +18,8 @@ the kernel.
         locally-connected conv with transposed weights (`lc_tap.py`).
     lc_transposed_pallas, lc3d_pallas — the JAX names of the LC kernels
         K7 (forward), K8 (dk) and K9 (dx) (`lc_cuda.py`).
+    mi_histograms — the fused soft-quantize + MI joint histogram
+        (`mi_hist.py`); its kernel route runs K10 (`mi_hist_cuda.py`).
 """
 
 from neurite_tpu_torch.ops.pool import max_pool  # noqa: F401
@@ -36,3 +38,4 @@ from neurite_tpu_torch.ops.lc_tap import (  # noqa: F401
 from neurite_tpu_torch.ops.lc_cuda import (  # noqa: F401
     lc3d_pallas, lc_transposed_pallas,
 )
+from neurite_tpu_torch.ops.mi_hist import mi_histograms  # noqa: F401

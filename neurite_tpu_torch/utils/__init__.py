@@ -7,5 +7,6 @@ from neurite_tpu_torch.utils import augment  # noqa: F401
 from neurite_tpu_torch.utils import spatial  # noqa: F401
 from neurite_tpu_torch.utils.core import (  # noqa: F401
     batch_channel_flatten, flatten_axes, gaussian_kernel, interpn,
-    minmax_norm, resize, separable_conv, zoom,
+    logistic, minmax_norm, resize, separable_conv, soft_delta,
+    soft_digitize, soft_quantize, zoom,
 )

@@ -43,6 +43,33 @@ def device_constant(array, device, dtype=None):
                             str(torch.device(device)))
 
 
+def as_float32(a, device):
+    """A float32 tensor on `device`: a tensor is cast and moved (keeping its
+    autograd graph), host data goes through `device_constant`."""
+    if torch.is_tensor(a):
+        return a.to(device=device, dtype=torch.float32)
+    return device_constant(np.asarray(a, np.float32), device)
+
+
+def clip(x, lo, hi):
+    """jnp.clip(x, lo, hi): NaN stays NaN, and at a tie the gradient goes
+    half to each side (torch.clamp gives all of it to x)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), float(lo))),
+                         x.new_full((), float(hi)))
+
+
+def linspace(start, stop, num):
+    """jnp.linspace(start, stop, num) of 0-d tensors, on their device and
+    differentiable in both: start * (1 - s) + stop * s with s = k / (num-1)
+    in float32, the last point exactly `stop`. Nothing is read back to the
+    host."""
+    if num < 2:
+        return start.reshape(1)[:num]
+    s = device_constant(np.arange(num - 1, dtype=np.float32)
+                        / np.float32(num - 1), start.device)
+    return torch.cat([start * (1 - s) + stop * s, stop.reshape(1)])
+
+
 def as_generator(seed, device=None):
     """Counterpart of `as_key`: a torch.Generator as it is, or a new one on
     `device` seeded with the int `seed`."""
@@ -125,13 +152,6 @@ def interpn(vol, loc, interp_method='linear', fill_value=None, impl='auto',
     return interpn_plain(vol, loc, interp_method, fill_value)
 
 
-def _clip(x, hi):
-    """jnp.clip(x, 0, hi) with JAX's gradient: half to each side of a tie
-    (torch.clamp would give all of it)."""
-    return torch.minimum(torch.maximum(x, x.new_zeros(())),
-                         x.new_full((), float(hi)))
-
-
 def interpn_plain(vol, loc, interp_method='linear', fill_value=None,
                   batched=False):
     """
@@ -175,7 +195,7 @@ def interpn_plain(vol, loc, interp_method='linear', fill_value=None,
 
     if interp_method == 'linear':
         loc0 = torch.floor(loc)
-        clipped = [_clip(loc[..., d], max_loc[d]) for d in range(nb_dims)]
+        clipped = [clip(loc[..., d], 0, max_loc[d]) for d in range(nb_dims)]
         loc0lst = [loc0[..., d].clamp(0, max_loc[d]) for d in range(nb_dims)]
         loc1 = [(loc0lst[d] + 1).clamp(0, max_loc[d]) for d in range(nb_dims)]
         locs = [[f.long() for f in loc0lst], [f.long() for f in loc1]]
@@ -533,3 +553,54 @@ def minmax_norm(x, axis=None):
     return torch.where(zero, torch.zeros((), dtype=x.dtype, device=x.device),
                        (x - x_min) / torch.where(zero, torch.ones_like(den),
                                                  den))
+
+
+def logistic(x, x0=0., alpha=1., L=1.):
+    """L / (1 + exp(-alpha*(x-x0))) (ref `utils.py:878-886`)."""
+    if L <= 0:
+        raise ValueError('L (height of logistic) should be > 0')
+    if alpha <= 0:
+        raise ValueError('alpha (slope) of logistic should be > 0')
+    return L / (1 + torch.exp(-alpha * (x - x0)))
+
+
+def soft_delta(x, x0=0., alpha=100, reg='l1'):
+    """Soft delta bump around x0 (ref `utils.py:929-941`)."""
+    if reg == 'l1':
+        xa = torch.abs(x - x0)
+    elif reg == 'l2':
+        xa = torch.square(x - x0)
+    else:
+        raise ValueError(f"reg must be 'l1' or 'l2', got {reg!r}")
+    return (1 - logistic(xa, alpha=alpha)) * 2
+
+
+def soft_quantize(x, bin_centers=None, nb_bins=16, alpha=1,
+                  min_clip=-np.inf, max_clip=np.inf, return_log=False):
+    """
+    Softly quantize (digitize) intensities via RBF bin assignment: each value
+    v contributes exp(-alpha * (clip(v) - c)^2) to the bin centered at c.
+    Returns [..., B] float32. Bin centers default to linspace(min(x),
+    max(x), nb_bins) over the whole tensor, computed on its device.
+    `bin_centers` and `nb_bins` exclude each other (so nb_bins=None must
+    go with bin_centers); return_log gives the exponent.
+
+    Parity: reference `neurite/tf/utils/utils.py:1095-1172`, JAX
+    `utils/core.py:764-795`.
+    """
+    x = x.to(torch.float32)
+    if bin_centers is not None:
+        if nb_bins is not None:
+            raise ValueError('cannot provide both bin_centers and nb_bins')
+        bin_centers = as_float32(bin_centers, x.device)
+    else:
+        if nb_bins is None:
+            nb_bins = 16
+        bin_centers = linspace(x.min(), x.max(), nb_bins)
+
+    x = clip(x[..., None], min_clip, max_clip)
+    log = -alpha * torch.square(x - bin_centers)
+    return log if return_log else torch.exp(log)
+
+
+soft_digitize = soft_quantize
