@@ -1,7 +1,8 @@
 """
 Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phases 1,2,10,13   # only the phases named
 
 Drives the port's four paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
@@ -10,7 +11,8 @@ Adam 1e-3), the config #5 synthesis -> UNet training step, the config #3
 UNet -> LocallyConnected3D head training step and the MI registration step
 (`benchmarks/mi_context.py:32-62`); and checks every
 hand-written kernel on them against its plain PyTorch version, each path's
-launch counts set to 0 just before it and read just after. Phases:
+launch counts set to 0 just before it and read just after. Phases (phase
+1 runs whatever --phases names):
 
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds the kernels (`neurite_tpu_torch/ops/csrc`);
@@ -48,11 +50,19 @@ launch counts set to 0 just before it and read just after. Phases:
      share);
  10. LC: K7 (forward), K8 (dk) and K9 (dx) vs their plain versions at the
      config #3 head's shapes (x [1, 160^3, 4], weights [1, 108, 160^3],
-     g [1, 160^3, 1]; bfloat16 and float32): equal; at 32^3 with 2 filters
-     and batch 3, in both weight layouts: within 1e-6 of the largest
-     magnitude; the keras-layout `lc3d_pallas` (the v1 semantics, bf16
-     products rounded in dx) at [160^3, 4], forward and both gradients:
-     equal;
+     g [1, 160^3, 1]; bfloat16 and float32): equal, K8 through its row
+     body; at 32^3 with 2 filters and batch 3, in both weight layouts: K7
+     and K9 within 1e-6 of the largest magnitude, K8 equal, by its
+     one-voxel body; K8 at batch 1: [1, 15, 17, 19, 4] (W = 19: the
+     one-voxel body), [1, 16, 17, 24, 4] (the row body, V a multiple of 8
+     but not of 8 x 256: a ragged last block), [1, 16, 17, 18, 4] 'valid'
+     (the row body without padding) and [1, 32^3, 4] with 2 filters (the
+     row body's filter loop), bf16 and f32: equal (each K8 check names the
+     body that ran, from the launch counts); the keras-layout
+     `lc3d_pallas` (the v1 semantics, bf16 products rounded in dx) at
+     [160^3, 4], forward and both gradients: equal; the card's write rate
+     for dk's bytes (`torch.empty_like(dk).zero_()` at [1, 108, 160^3]
+     bf16), a bandwidth probe beside K8's time;
  11. one float32 config #3 step at 64^3 through the kernels and one through
      the plain versions from the same weights (TF32 off, deterministic
      cuDNN): losses within rtol 1e-5, each gradient within 1e-4 of its
@@ -61,13 +71,19 @@ launch counts set to 0 just before it and read just after. Phases:
      nb_levels=3, feat_mult=2, linear output, bf16 compute) feeding
      LocallyConnected3D(filters=1, kernel_size=3, 'same', bf16 weights
      [1, 108, 160^3]), MSE, Adam 1e-4, 160^3, 10 steps: finite losses,
-     launch counts of K1, K2 and K7-K9 exactly those of 10 steps, median
-     step ms, vol/s, peak memory; a profile of 3 steps;
+     launch counts of K1, K2 and K7-K9 exactly those of 10 steps, K8 by its
+     row body every step (`lc_dk_row`), median step ms, vol/s, peak
+     memory; a profile of 3 steps;
  13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
      16 bins and centers from the data, at [2, 1000], [1, 128^3 + 37], 8
-     bins clipped to [0, 1] on inputs in [-1, 2], and with one NaN voxel:
-     within 1e-5 of the largest magnitude, NaN where the plain version has
-     it, two calls bit-equal; `MIHistograms`' dx and dy on the K10 route vs
+     bins clipped to [0, 1] on inputs in [-1, 2], with one NaN voxel, and
+     at [1, 64^3] with 65 and 128 bins and [1, 32^3] with 1024 (past one
+     64-bin chunk; fewer blocks at 1024, for the scratch): within 1e-5
+     of the largest magnitude, NaN where the plain version has it, two
+     calls bit-equal; alpha as a CUDA 0-d tensor, through the wrapper and
+     `ops.mi_histograms(impl='pallas')`, under CUDA's sync debug mode
+     'error': no host sync, bit-equal to the float-alpha call;
+     `MIHistograms`' dx and dy on the K10 route vs
      the plain forward; the materialized route's time (two soft_quantize
      maps and a bmm) as context;
  14. one MI registration step at 64^3 (the field at +-2 voxels) on the card
@@ -92,9 +108,12 @@ the port.
 
 Prints one line per check, then a JSON line of the kernels, and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
-machine without a CUDA device.
+machine without a CUDA device. Run with --phases, a kernel's fields that
+no phase of the run measured are null, and both JSON lines carry the
+phases that ran.
 """
 
+import argparse
 import json
 import math
 import re
@@ -123,28 +142,34 @@ PROFILE_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
+# name: (source, TPU kernel it replaces, the phase that checks and times it,
+# the phase whose path run counts its launches)
 KERNELS = {
     'pool2_fwd': ('neurite_tpu_torch/ops/csrc/pool.cu',
-                  'neurite_tpu/ops/pool_pallas.py:182'),
+                  'neurite_tpu/ops/pool_pallas.py:182', '3', '6'),
     'pool2_bwd': ('neurite_tpu_torch/ops/csrc/pool.cu',
-                  'neurite_tpu/ops/pool_pallas.py:199'),
+                  'neurite_tpu/ops/pool_pallas.py:199', '3', '6'),
     'dice_sums': ('neurite_tpu_torch/ops/csrc/dice_red.cu',
-                  'neurite_tpu/ops/dice_red.py:60'),
+                  'neurite_tpu/ops/dice_red.py:60', '4', '6'),
     'interpn': ('neurite_tpu_torch/ops/csrc/interpn.cu',
-                'neurite_tpu/ops/pallas_warp.py:114 and :302'),
+                'neurite_tpu/ops/pallas_warp.py:114 and :302', '7', '9'),
     'blur': ('neurite_tpu_torch/ops/csrc/blur.cu',
-             'neurite_tpu/ops/blur.py:118'),
+             'neurite_tpu/ops/blur.py:118', '8', '9'),
     'lc_fwd': ('neurite_tpu_torch/ops/csrc/lc.cu',
                'neurite_tpu/ops/pallas_lc2.py:230 and '
-               'neurite_tpu/ops/pallas_lc.py:188'),
+               'neurite_tpu/ops/pallas_lc.py:188', '10', '12'),
     'lc_dk': ('neurite_tpu_torch/ops/csrc/lc.cu',
               'neurite_tpu/ops/pallas_lc2.py:263 and '
-              'neurite_tpu/ops/pallas_lc.py:220'),
+              'neurite_tpu/ops/pallas_lc.py:220', '10', '12'),
     'lc_dx': ('neurite_tpu_torch/ops/csrc/lc.cu',
-              'neurite_tpu/ops/pallas_lc.py:252'),
+              'neurite_tpu/ops/pallas_lc.py:252', '10', '12'),
     'mi_hist': ('neurite_tpu_torch/ops/csrc/mi_hist.cu',
-                'neurite_tpu/ops/mi_hist.py:90'),
+                'neurite_tpu/ops/mi_hist.py:90', '13', '15'),
 }
+MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')
+PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
+          '13', '14', '15')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -873,20 +898,32 @@ def lc_bound(name, x, k, g):
     return live * ksz + gb + xb, 2 * live * batch   # dx: read weights, g
 
 
+def dk_body_run(kern):
+    """(result, K8 body that ran) of kern(), one K8 launch, read from the
+    launch counts."""
+    before = _build.launches['lc_dk_row']
+    out = kern()
+    return out, 'row' if _build.launches['lc_dk_row'] > before else 'voxel'
+
+
 def phase_lc(checks, res):
     print('== 10. LC K7/K8/K9 vs plain', flush=True)
     gen = torch.Generator(device='cuda').manual_seed(10)
-    # the head's shapes: bf16 (the step's types), then float32; equal
+    # the head's shapes: bf16 (the step's types), then float32; equal, and
+    # K8 through its row body
     for dtype in (torch.bfloat16, torch.float32):
         x, k, g = lc_inputs(gen, 1, LC_VOL, 4, 1, dtype)
         for name, kern, plain in lc_calls(x, k, g, False):
-            a, b = kern(), plain()
+            (a, body), b = dk_body_run(kern), plain()
             torch.cuda.synchronize()
             err = max_abs_err(a, b)
             tag = f'{str(dtype)[6:]} x {list(x.shape)} w {list(k.shape)}'
-            checks.check(f'{name} {tag}', bit_equal(a, b),
+            body_ok = name != 'lc_dk' or body == 'row'
+            checks.check(f'{name} {tag}', bit_equal(a, b) and body_ok,
                          f'equal {bool(torch.equal(a, b))}, max abs err '
-                         f'{err:.3g}')
+                         f'{err:.3g}'
+                         + (f', K8 body {body} (row expected)'
+                            if name == 'lc_dk' else ''))
             r = res[name]
             r['max_abs_err'] = max(r['max_abs_err'], err)
             del a, b
@@ -901,24 +938,62 @@ def phase_lc(checks, res):
                   f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
                   f'({r["bound_by"]}; {nbytes} B, {flops} flop); one kernel '
                   f'call {c_ms:.4f} ms', flush=True)
+            if name == 'lc_dk':
+                # the card's write rate for dk's bytes: a bandwidth probe,
+                # not a library call (no PyTorch call is an LC dk)
+                p_ms = time_ms(lambda: torch.empty_like(k).zero_())
+                nb = k.numel() * k.element_size()
+                print(f'  write ceiling probe (bandwidth, not library_ms): '
+                      f'torch.empty_like(dk).zero_() at {list(k.shape)} '
+                      f'{str(k.dtype)[6:]}: {p_ms:.4f} ms = '
+                      f'{nb / p_ms / 1e9:.3f} TB/s; K8 at '
+                      f'{nb / r["ms"] / 1e9:.3f} TB/s of dk', flush=True)
         del x, k, g
     # 2 filters, batch 3, both weight layouts: the strides, the filter loop
-    # and the batch fold
+    # and the batch fold (K8 by its one-voxel body)
     for dtype in (torch.bfloat16, torch.float32):
         x, k, g = lc_inputs(gen, 3, 32, 4, 2, dtype)
         for keras in (False, True):
             kk = k.permute(2, 1, 0).contiguous() if keras else k
             for name, kern, plain in lc_calls(x, kk, g, keras):
-                a, b = kern(), plain()
+                (a, body), b = dk_body_run(kern), plain()
                 torch.cuda.synchronize()
                 err = max_abs_err(a, b)
                 rel = err / max(float(b.float().abs().max()), 1e-30)
+                if name == 'lc_dk':   # K8: equal, through the right body
+                    ok = bit_equal(a, b) and body == 'voxel'
+                    more = f'; K8 body {body} (voxel expected)'
+                else:
+                    ok, more = rel <= 1e-6, ''
                 checks.check(
                     f'{name} {str(dtype)[6:]} 32^3 O=2 B=3 '
-                    f'{"keras" if keras else "transposed"}', rel <= 1e-6,
+                    f'{"keras" if keras else "transposed"}', ok,
                     f'max abs err / max {rel:.3g} (1e-6); equal '
-                    f'{bool(torch.equal(a, b))}')
+                    f'{bool(torch.equal(a, b))}{more}')
                 res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+    # K8 off the head's shape, batch 1: W = 19 (a thread's voxels would
+    # cross rows: the one-voxel body); W = 24, V = 16*17*24 = 6528 (the row
+    # body, V a multiple of 8 voxels but not of 8 x 256: a ragged last
+    # block); 'valid' at [16, 17, 18], out [14, 15, 16] (the row body
+    # without padding); 32^3 with 2 filters (the row body's filter loop);
+    # equal
+    for sp, padding, O, want in (((15, 17, 19), 'same', 1, 'voxel'),
+                                 ((16, 17, 24), 'same', 1, 'row'),
+                                 ((16, 17, 18), 'valid', 1, 'row'),
+                                 ((32, 32, 32), 'same', 2, 'row')):
+        out = [s - 2 for s in sp] if padding == 'valid' else list(sp)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, *sp, 4), generator=gen,
+                            device='cuda').to(dtype)
+            g = torch.randn((1, *out, O), generator=gen, device='cuda')
+            a, body = dk_body_run(
+                lambda: lc_cuda.dk_cuda(g, x, LC_KS, padding, dtype))
+            b = lc_cuda.dk_plain(g, x, LC_KS, padding, dtype)
+            torch.cuda.synchronize()
+            checks.check(f'lc_dk {str(dtype)[6:]} x {list(x.shape)} O={O} '
+                         f'{padding}', bit_equal(a, b) and body == want,
+                         f'equal {bool(torch.equal(a, b))}, K8 body {body} '
+                         f'({want} expected)')
 
     # the keras-layout v1 entry point through autograd, at the head's shape
     sp, V = (LC_VOL,) * 3, LC_VOL ** 3
@@ -1005,7 +1080,8 @@ def phase_lc_check(checks):
         (lk, nk, gk), (lp, np_, gp) = runs['auto'], runs['plain']
         checks.check('config #3 f32 launches', all(
             nk.get(n, 0) == c for n, c in (('lc_fwd', 1), ('lc_dk', 1),
-                                           ('lc_dx', 1), ('pool2_fwd', 2),
+                                           ('lc_dk_row', 1), ('lc_dx', 1),
+                                           ('pool2_fwd', 2),
                                            ('pool2_bwd', 2)))
             and not np_, f'kernels {nk}, plain {np_}')
         checks.check('config #3 f32 loss', abs(lk - lp) <= 1e-5 * abs(lp),
@@ -1053,12 +1129,12 @@ def phase_lc_train(checks, res):
     checks.check('config #3 head moments in the parameter dtype',
                  moments == torch.bfloat16, str(moments))
     per_step = {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1, 'lc_dk': 1,
-                'lc_dx': 1}
+                'lc_dk_row': 1, 'lc_dx': 1}
     for name, n in per_step.items():
         got, want = counts.get(name, 0), n * TRAIN_STEPS
         checks.check(f'config #3 launches {name}', got == want and got > 0,
                      f'{got} (expected {n} per step)')
-        if name.startswith('lc_'):
+        if name in ('lc_fwd', 'lc_dk', 'lc_dx'):
             res[name]['launches'] = got
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
@@ -1138,6 +1214,17 @@ def phase_mi(checks, res):
         (f'path [1, {VOL}^3] B=16, one NaN voxel', nan_x, fixed,
          unit, unit, alpha, -np.inf, np.inf),
     ]
+    # past one 64-bin chunk: 2 x 2 pairs of chunks, 65 (a chunk of one bin)
+    # and 128; 16 x 16 at 1024 bins on [1, 32^3], with 15 blocks a row (the
+    # scratch bound of mi_hist_cuda._launch_blocks)
+    x64, y64 = rand((1, 64 ** 3)), rand((1, 64 ** 3))
+    x32, y32 = rand((1, 32 ** 3)), rand((1, 32 ** 3))
+    for nb, xs, ys, tag in ((65, x64, y64, '64^3'), (128, x64, y64, '64^3'),
+                            (1024, x32, y32, '32^3')):
+        c = torch.linspace(0., 1., nb, device='cuda')
+        cases.append((f'[1, {tag}] B={nb}', xs, ys, c, c,
+                      nt.metrics.MutualInformation(nb_bins=nb).soft_bin_alpha,
+                      -np.inf, np.inf))
     for i, (name, x, y, cx, cy, a, lo, hi) in enumerate(cases):
         k = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
         k2 = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
@@ -1154,6 +1241,27 @@ def phase_mi(checks, res):
                      f'bit-equal {same}')
         if i == 0:
             r['max_abs_err'] = max(max_abs_err(u, w) for u, w in zip(k, p))
+
+    # alpha as a CUDA 0-d tensor: read by the kernel, no host sync, the
+    # float call's bits (the wrapper, and the entry point's K10 route)
+    at = torch.tensor(alpha, dtype=torch.float32, device='cuda')
+    want = mi_hist_cuda.mi_histograms_cuda(moving, fixed, unit, unit, alpha)
+    torch.cuda.synchronize()
+    err = ''
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = (mi_hist_cuda.mi_histograms_cuda(moving, fixed, unit, unit, at),
+               nt.ops.mi_histograms(moving, fixed, unit, at, impl='pallas'))
+    except RuntimeError as e:
+        got, err = (), f'; {e}'
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same = bool(got) and all(bit_equal(u, w) for out in got
+                             for u, w in zip(out, want))
+    checks.check('mi_hist alpha as a CUDA 0-d tensor', same,
+                 f'no host sync {not err}, bit-equal to the float alpha '
+                 f'{same}{err}')
 
     # MIHistograms' dx and dy on the K10 route against the plain forward
     x, y, cx, cy = moving, fixed, centers(moving), centers(fixed)
@@ -1358,31 +1466,62 @@ def report_profile(label, fn, first):
               f'/call  {key[:90]}')
 
 
-def main():
+def parse_phases(argv):
+    """The phases named by --phases (a comma list; all when it is absent).
+    Phase 1 runs whatever is named: it finds the card."""
+    ap = argparse.ArgumentParser(
+        description='Smoke test of neurite_tpu_torch on one NVIDIA GPU.')
+    ap.add_argument('--phases', default=','.join(PHASES),
+                    help='comma list of phases to run, of '
+                         + ','.join(PHASES) + ' (default: all)')
+    names = [p.strip() for p in ap.parse_args(argv).phases.split(',')
+             if p.strip()]
+    bad = [p for p in names if p not in PHASES]
+    if bad or not names:
+        ap.error(f'unknown phases {bad}: choose from {",".join(PHASES)}')
+    return set(names)
+
+
+def main(argv=None):
+    run = parse_phases(argv)
     card = phase_device()
     checks = Checks()
     res = {n: {'name': n, 'route': 'cuda', 'source': src, 'replaces': rep,
                'launches': 0, 'max_abs_err': 0., 'ms': 0., 'plain_ms': 0.,
                'bound_ms': 0., 'bound_by': None, 'library_ms': 0.}
-           for n, (src, rep) in KERNELS.items()}
-    build_s = phase_build()
-    phase_pool(checks, res)
-    phase_dice(checks, res)
-    x, y = flagship_inputs()
-    phase_parity(checks, x, y)
-    phase_train(checks, res, x, y)
-    del x, y
-    phase_interpn(checks, res)
-    phase_blur(checks, res)
-    phase_synth_check(checks)
-    phase_synth_train(checks, res)
-    phase_lc(checks, res)
-    phase_lc_check(checks)
-    phase_lc_train(checks, res)
-    phase_mi(checks, res)
-    phase_reg_check(checks)
-    phase_reg_train(checks, res)
-    print(f'card: {card}; kernel build {build_s:.3f} s; each kernel\'s ms, '
+           for n, (src, rep, _, _) in KERNELS.items()}
+    build = f'{phase_build():.3f} s' if '2' in run else 'not run (phase 2)'
+    phases = {
+        '3': lambda: phase_pool(checks, res),
+        '4': lambda: phase_dice(checks, res),
+        '5': lambda: phase_parity(checks, *flagship_inputs()),
+        '6': lambda: phase_train(checks, res, *flagship_inputs()),
+        '7': lambda: phase_interpn(checks, res),
+        '8': lambda: phase_blur(checks, res),
+        '9a': lambda: phase_synth_check(checks),
+        '9': lambda: phase_synth_train(checks, res),
+        '10': lambda: phase_lc(checks, res),
+        '11': lambda: phase_lc_check(checks),
+        '12': lambda: phase_lc_train(checks, res),
+        '13': lambda: phase_mi(checks, res),
+        '14': lambda: phase_reg_check(checks),
+        '15': lambda: phase_reg_train(checks, res),
+    }
+    for name, fn in phases.items():
+        if name in run:
+            fn()
+    # a field that no phase of this run measured is null, not its start value
+    for n, (_, _, measure, count) in KERNELS.items():
+        if measure not in run:
+            res[n].update(dict.fromkeys(MEASURED))
+        if count not in run:
+            res[n]['launches'] = None
+    ran = ",".join(p for p in PHASES if p in run)
+    print(f'phases run: {ran}'
+          + ('' if len(run) == len(PHASES) else
+             ' (a subset: the kernels line holds null for what they did not '
+             'measure, and the run does not stand for the whole smoke test)'))
+    print(f'card: {card}; kernel build {build}; each kernel\'s ms, '
           f'plain_ms, library_ms and bound_ms sum its calls of one step: the '
           f'three bf16 pool shapes, 5 linear 64^3 and 1 nearest 128^3 '
           f'interpolations, 2 blurs of [3, 64^3] (41 taps) and one each of '
@@ -1391,15 +1530,16 @@ def main():
           f'histogram call at [1, 128^3] with 16 bins; K1-K3 launches are '
           f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 config #3\'s, '
           f'K10 the MI registration run\'s')
+    subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}
-                                  for r in res.values()]}))
+                                  for r in res.values()], **subset}))
     if checks.failed:
         print(f'FAILED: {checks.failed}', flush=True)
         sys.exit(1)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+        'count': torch.cuda.device_count()}, **subset}))
 
 
 if __name__ == '__main__':

@@ -27,9 +27,23 @@
 // flat-shift masks. Each thread walks all taps of its voxel, so its voxel
 // coordinates are decomposed once (32-bit: a volume has < 2^31 voxels; weight
 // offsets are int64, since O*TC*V passes 2^31), and K8 and K9 handle four
-// channels of a tap together, so their loads are in flight together. A
-// simple kernel first: staging x's halo in shared memory and a vectorized or
-// cp.async weight stream are later work.
+// channels of a tap together, so their loads are in flight together.
+//
+// K8 has two bodies, picked by the caller (`lc_cuda.dk_body`). With one
+// voxel a thread (`lc_dk_kernel`, any layout and shape) each row store is 2
+// bytes (bf16) a thread, 64 bytes a warp, and each x load 2 bytes: at the
+// config #3 head that is 13.8 M store and as many load instructions a warp
+// for 885 MB, and the kernel ran at 0.65 TB/s. The row body
+// (`lc_dk_row_kernel`) takes B = 1, C = 4, kx <= 3 and Wo a multiple of 16
+// bytes of voxels (8 bf16 or 4 float32) in the transposed layout (s_v = 1,
+// rows and base 16-byte aligned): the config #3 head. A thread owns 16 bytes
+// of consecutive voxels of one output row, so each (t, c, o) row is one
+// 16-byte streaming store a thread and 512 contiguous bytes a warp (dk is
+// written once and not reread, so it need not push x out of L2); per (tz,
+// ty) it loads the NV + kx - 1 input voxels its taps along W reach once,
+// four channels a load, and keeps them in registers for every tx, channel
+// and filter. 0.33 ms at the head on an H100 80GB HBM3 (700 W), 83 % of its
+// bytes bound.
 //
 // Semantics, exactly as the plain versions (ops/lc_tap.py):
 // - K7: y[b, v, o] = sum over taps t, then channels c, of
@@ -45,7 +59,8 @@
 //   to the weights' dtype (the v1 q, pallas_lc.py:292). The sum starts at
 //   +0 and is rounded once to x's dtype, written by the kernel.
 // Products and sums use __fmul_rn and __fadd_rn, so nvcc cannot contract them
-// into FMAs: the kernels equal the plain versions bit for bit.
+// into FMAs: the kernels equal the plain versions bit for bit. K8's row
+// body runs at B = 1 only, where each value is one product rounded once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,6 +185,118 @@ __global__ void lc_dk_kernel(const float* __restrict__ gr,
   }
 }
 
+// Four channels of one x voxel as one load: 8 bytes of bf16 (channel c in
+// the high or low half of a word: its float32 bits are those 16 bits
+// shifted up) or 16 of float32.
+template <typename T>
+struct Quad;
+template <>
+struct Quad<bf16> {
+  typedef uint2 type;
+  __device__ static uint2 load(const bf16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static float chan(uint2 q, int c) {
+    const unsigned w = c < 2 ? q.x : q.y;
+    return __uint_as_float(c & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+template <>
+struct Quad<float> {
+  typedef float4 type;
+  __device__ static float4 load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float chan(float4 q, int c) {
+    return c == 0 ? q.x : (c == 1 ? q.y : (c == 2 ? q.z : q.w));
+  }
+};
+
+// One row's 16 bytes of voxels, rounded once each, by a streaming store.
+__device__ __forceinline__ void store_row(bf16* p, const float (&v)[8]) {
+  union { uint4 u; unsigned short h[8]; } w;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    w.h[j] = __bfloat16_as_ushort(from_f32<bf16>(v[j]));
+  __stcs(reinterpret_cast<uint4*>(p), w.u);
+}
+
+__device__ __forceinline__ void store_row(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+// Voxels a thread of the K8 row body owns: 16 bytes of weights.
+template <typename TK>
+__host__ __device__ constexpr int row_voxels() {
+  return 16 / (int)sizeof(TK);
+}
+
+// Widest kernel along W that the row body takes.
+constexpr int kRowTaps = 3;
+
+// The K8 row body, for B = 1, C = 4 channels, kx <= 3 and Wo % NV == 0
+// in the transposed layout, so a thread's NV voxels lie in one output row
+// and each of its rows is one aligned 16-byte store: for each
+// (tz, ty) it loads the NV + kx - 1 input voxels that its taps along W
+// reach once (one 8- or 16-byte load each, zero in the padding) and keeps
+// them in registers for every tx, channel and filter. At B = 1 each value
+// is one product rounded once (-0 + p == p), so the row order does not
+// change a bit.
+template <typename TX, typename TK>
+__global__ void __launch_bounds__(256)
+lc_dk_row_kernel(const float* __restrict__ gr, const TX* __restrict__ x,
+                 TK* __restrict__ dk, Geo g) {
+  constexpr int NV = row_voxels<TK>();
+  constexpr int NW = NV + kRowTaps - 1;
+  typedef Quad<TX> Q;
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Vo = Wo * Ho * (int)g.Do;
+  const int grp = blockIdx.x * blockDim.x + threadIdx.x;
+  if (grp >= Vo / NV) return;
+  const int v0 = grp * NV;
+  const int D = (int)g.D, H = (int)g.H, W = (int)g.W, kx = (int)g.kx;
+  const int wo = v0 % Wo, ho = (v0 / Wo) % Ho, zo = v0 / (Wo * Ho);
+  const int O = (int)g.O;
+  float g1[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) g1[j] = O == 1 ? gr[v0 + j] : 0.f;
+  TK* dv = dk + v0;
+  for (int tz = 0; tz < (int)g.kz; ++tz) {
+    const int zi = zo + tz - (int)g.pz;
+    for (int ty = 0; ty < (int)g.ky; ++ty) {
+      const int yi = ho + ty - (int)g.py;
+      const bool ok = zi >= 0 && zi < D && yi >= 0 && yi < H;
+      const TX* xr = x + (ok ? (int64_t)(zi * H + yi) * W * kChans : 0);
+      typename Q::type win[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const int xi = wo - (int)g.px + w;
+        win[w] = ok && w < NV + kx - 1 && xi >= 0 && xi < W
+                     ? Q::load(xr + xi * kChans)
+                     : typename Q::type{};
+      }
+      for (int o = 0; o < O; ++o) {
+        float gv[NV];
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+          gv[j] = O == 1 ? g1[j] : gr[(int64_t)(v0 + j) * O + o];
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+          if (tx >= kx) break;
+          const int64_t t = (tz * g.ky + ty) * g.kx + tx;
+#pragma unroll
+          for (int c = 0; c < kChans; ++c) {
+            float p[NV];
+#pragma unroll
+            for (int j = 0; j < NV; ++j)
+              p[j] = __fmul_rn(gv[j], Q::chan(win[j + tx], c));
+            store_row(dv + (t * kChans + c) * g.s_t + o * g.s_o, p);
+          }
+        }
+      }
+    }
+  }
+}
+
 // One thread per input voxel u (blockIdx.y: the batch item): its C
 // cotangents, kChans channels at a time.
 template <typename TX, typename TK>
@@ -245,11 +372,19 @@ void fwd(const void* x, const void* k, float* y, const Geo& g,
                                                   y, g);
 }
 
+// row: the row body, whose conditions (`lc_cuda.dk_body`) the caller has
+// checked; else the one-voxel body.
 template <typename TX, typename TK>
-void dkk(const float* gr, const void* x, void* dk, const Geo& g,
+void dkk(const float* gr, const void* x, void* dk, const Geo& g, int row,
          cudaStream_t s) {
-  lc_dk_kernel<TX, TK><<<blocks_for(g.Do * g.Ho * g.Wo), kThreads, 0, s>>>(
-      gr, (const TX*)x, (TK*)dk, g);
+  const int64_t Vo = g.Do * g.Ho * g.Wo;
+  if (row)
+    lc_dk_row_kernel<TX, TK>
+        <<<blocks_for(Vo / row_voxels<TK>()), kThreads, 0, s>>>(
+            gr, (const TX*)x, (TK*)dk, g);
+  else
+    lc_dk_kernel<TX, TK><<<blocks_for(Vo), kThreads, 0, s>>>(
+        gr, (const TX*)x, (TK*)dk, g);
 }
 
 template <typename TX, typename TK>
@@ -278,14 +413,18 @@ int neurite_lc_fwd(const void* x, const void* k, float* y, const int64_t* geo,
   return (int)cudaGetLastError();
 }
 
+// row picks K8's row body (1: B = 1, C = 4, kx <= 3, Wo % (16 bytes of
+// weights) == 0, the transposed layout with 16-byte aligned rows and base,
+// x aligned to its 4-channel voxels) or its one-voxel body (0: any layout
+// and shape).
 int neurite_lc_dk(const float* gr, const void* x, void* dk, const int64_t* geo,
-                  int x_bf16, int k_bf16, cudaStream_t stream) {
+                  int x_bf16, int k_bf16, int row, cudaStream_t stream) {
   const Geo g = make_geo(geo);
   if (g.Do * g.Ho * g.Wo == 0) return 0;
-  if (x_bf16 && k_bf16) dkk<bf16, bf16>(gr, x, dk, g, stream);
-  else if (x_bf16) dkk<bf16, float>(gr, x, dk, g, stream);
-  else if (k_bf16) dkk<float, bf16>(gr, x, dk, g, stream);
-  else dkk<float, float>(gr, x, dk, g, stream);
+  if (x_bf16 && k_bf16) dkk<bf16, bf16>(gr, x, dk, g, row, stream);
+  else if (x_bf16) dkk<bf16, float>(gr, x, dk, g, row, stream);
+  else if (k_bf16) dkk<float, bf16>(gr, x, dk, g, row, stream);
+  else dkk<float, float>(gr, x, dk, g, row, stream);
   return (int)cudaGetLastError();
 }
 

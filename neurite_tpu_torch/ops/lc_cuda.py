@@ -10,11 +10,12 @@ three kernels serve both layouts.
 Each op takes its plain version (`ops/lc_tap.py`) for a CPU tensor and
 launches its kernel for a CUDA tensor, raising on what the kernel does not
 take. Every launch adds one to `_build.launches['lc_fwd' | 'lc_dk' |
-'lc_dx']`. The domain (`supported`) is 3-D, stride 1, 'same' or 'valid',
-any filters and channels, float32 or bfloat16: the TPU gates of
-`pallas_lc2.supported` (H % 8, the 512-term unroll cap, VMEM) have no
-counterpart on the card. `interpret` is accepted for the JAX names and has
-no effect.
+'lc_dx']`; a K8 launch that takes the row body (`dk_body`) also adds
+one to `_build.launches['lc_dk_row']`. The domain (`supported`) is 3-D,
+stride 1, 'same' or 'valid', any filters and channels, float32 or
+bfloat16: the TPU gates of `pallas_lc2.supported` (H % 8, the 512-term
+unroll cap, VMEM) have no counterpart on the card. `interpret` is
+accepted for the JAX names and has no effect.
 """
 
 import ctypes
@@ -108,6 +109,25 @@ def fwd_cuda(x, kview, kernel_size, padding):
     return y
 
 
+def dk_body(x, view, kernel_size, padding):
+    """The K8 body (`csrc/lc.cu`) that writes dk's [O, TC, V] view `view`
+    from x [B, D, H, W, C]: 'row' where a thread's 16 bytes of voxels (8
+    bfloat16 or 4 float32) lie in one output row and each (tap, channel,
+    filter) row of them is one aligned 16-byte store: batch 1, 4 channels,
+    a kernel at most 3 wide along W, Wo a multiple of those voxels, the
+    transposed layout (unit voxel stride, rows and base 16-byte aligned)
+    and x aligned to its 4-channel voxels (the config #3 head); else
+    'voxel', one voxel a thread (any layout and shape)."""
+    nv = 16 // view.element_size()
+    s_o, s_t, s_v = view.stride()
+    wo = lc_tap._out_shape(x.shape[1:4], kernel_size, padding)[2]
+    row = (x.shape[0] == 1 and x.shape[-1] == 4 and kernel_size[2] <= 3
+           and wo % nv == 0 and s_v == 1 and s_t % nv == 0
+           and s_o % nv == 0 and view.data_ptr() % 16 == 0
+           and x.data_ptr() % (4 * x.element_size()) == 0)
+    return 'row' if row else 'voxel'
+
+
 def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
     """K8: g [B, Do, Ho, Wo, O] float32 and x [B, D, H, W, C] (both
     contiguous) -> dk in `dtype`, [O, TC, V] (or [V, TC, O] if keras), the
@@ -128,11 +148,14 @@ def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
     _check(x, view, kernel_size, padding)
     geo, xb, kb = _launch_args(tuple(x.shape), view, kernel_size, padding,
                                x.dtype)
+    row = dk_body(x, view, kernel_size, padding) == 'row'
     lib = _build.library()
     with torch.cuda.device(x.device):
         lib.call('neurite_lc_dk', g.data_ptr(), x.data_ptr(), dk.data_ptr(),
-                 geo, xb, kb, _build.stream_of(x))
+                 geo, xb, kb, int(row), _build.stream_of(x))
     _build.launches['lc_dk'] += 1
+    if row:
+        _build.launches['lc_dk_row'] += 1
     return dk
 
 

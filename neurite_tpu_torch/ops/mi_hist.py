@@ -105,7 +105,7 @@ def mi_histograms(x, y, bin_centers, alpha, min_clip=-np.inf,
         bin_centers: [B] (for x; also for y unless bin_centers_y); a tensor
             keeps its autograd graph, host data is copied to the device once.
         alpha: RBF sharpness 1 / (2 sigma^2), a float or a 0-d tensor (K10
-            takes it as a float: a CUDA tensor is read back to the host).
+            reads a CUDA tensor on the card: no host sync).
         min_clip/max_clip: intensity clip bounds (+-inf: no clip).
         impl: 'auto', 'pallas', 'plain' or 'jnp' (module docstring).
         interpret: accepted for the JAX signature; no effect.

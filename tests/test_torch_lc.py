@@ -11,7 +11,9 @@ computed once (module-scoped caches): an interpret call costs seconds here.
 Tolerances: float32 within rtol 1e-5 and atol 1e-5 (the sums run in
 another order than XLA's); bfloat16 outputs within one bf16 ulp of JAX's,
 and dk at B=1 equal (both round the same float32 product once). On the
-card (`cuda` tests) the kernels must equal the plain versions.
+card (`cuda` tests) the kernels must equal the plain versions, each body
+of K8 (`lc_cuda.dk_body`: 16-byte rows of voxels a thread, or one voxel)
+included.
 """
 import numpy as np
 import pytest
@@ -249,6 +251,77 @@ def test_supported_and_wrapper_checks():
     assert not _build.launches['lc_fwd']
 
 
+def _dk_args(x_shape, O, dtype, keras=False, ks=(3, 3, 3), padding='same',
+             device='meta'):
+    """(x, dk's [O, TC, V] view) as `dk_cuda` sees them for x_shape: dk in
+    the weights' own layout (keras [V, TC, O], or transposed), on
+    `device`."""
+    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
+    shape = (O, int(np.prod(ks)) * x_shape[-1], int(np.prod(out)))
+    dk = torch.empty(shape[::-1] if keras else shape, dtype=dtype,
+                     device=device)
+    x = torch.empty(x_shape, dtype=dtype, device=device)
+    return x, lc_cuda._weight_view(dk, keras)
+
+
+DK_BODIES = {   # name: (x_shape, O, dtype, keras, padding, ks, the body)
+    # the config #3 head: Wo = 160, a multiple of 8 bf16 or 4 f32 voxels
+    'head_bf16': ((1, 160, 160, 160, 4), 1, torch.bfloat16, False, 'same',
+                  (3, 3, 3), 'row'),
+    'head_f32': ((1, 160, 160, 160, 4), 1, torch.float32, False, 'same',
+                 (3, 3, 3), 'row'),
+    'row_o2_bf16': ((1, 5, 6, 16, 4), 2, torch.bfloat16, False, 'same',
+                    (3, 3, 3), 'row'),
+    # 'valid': Wo = 12, 4 f32 voxels fit a row, 8 bf16 ones do not
+    'row_valid_f32': ((1, 5, 6, 14, 4), 1, torch.float32, False, 'valid',
+                      (3, 3, 3), 'row'),
+    'row_valid_bf16': ((1, 5, 6, 14, 4), 1, torch.bfloat16, False, 'valid',
+                       (3, 3, 3), 'voxel'),
+    'b3_o2_bf16': ((3, 32, 32, 32, 4), 2, torch.bfloat16, False, 'same',
+                   (3, 3, 3), 'voxel'),
+    'b3_o2_f32': ((3, 32, 32, 32, 4), 2, torch.float32, False, 'same',
+                  (3, 3, 3), 'voxel'),
+    'keras_head': ((1, 160, 160, 160, 4), 1, torch.bfloat16, True, 'same',
+                   (3, 3, 3), 'voxel'),
+    'keras_b3_o2': ((3, 32, 32, 32, 4), 2, torch.float32, True, 'same',
+                    (3, 3, 3), 'voxel'),
+    # Wo = 19: a thread's voxels would cross rows
+    'ragged_bf16': ((1, 15, 17, 19, 4), 1, torch.bfloat16, False, 'same',
+                    (3, 3, 3), 'voxel'),
+    'ragged_f32': ((1, 15, 17, 19, 4), 1, torch.float32, False, 'same',
+                   (3, 3, 3), 'voxel'),
+    'c3_bf16': ((1, 16, 17, 16, 3), 1, torch.bfloat16, False, 'same',
+                (3, 3, 3), 'voxel'),
+    'kx5_bf16': ((1, 6, 6, 16, 4), 1, torch.bfloat16, False, 'same',
+                 (3, 3, 5), 'voxel'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(DK_BODIES))
+def test_dk_body_picks_by_layout_and_shape(case):
+    """K8's row body takes batch 1, 4 channels, kx <= 3 and whole 16-byte
+    groups of voxels in each output row of the transposed layout; the keras
+    strides, a batch, another C or kx and a ragged row take the one-voxel
+    body."""
+    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
+    assert lc_cuda.dk_body(x, view, ks, padding) == body
+
+
+def test_dk_body_needs_aligned_bases():
+    """A dk that starts off a 16-byte boundary, or an x off its 4-channel
+    voxels, takes the one-voxel body."""
+    ks = (3, 3, 3)
+    x, view = _dk_args((1, 4, 4, 8, 4), 1, torch.bfloat16, device='cpu')
+    assert lc_cuda.dk_body(x, view, ks, 'same') == 'row'
+    flat = torch.empty(view.numel() + 1, dtype=torch.bfloat16)
+    assert lc_cuda.dk_body(x, flat[1:].view(view.shape), ks,
+                           'same') == 'voxel'
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+    assert lc_cuda.dk_body(flat[1:].view(x.shape), view, ks,
+                           'same') == 'voxel'
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -281,3 +354,27 @@ def test_kernels_equal_plain_on_card(cuda, case, dtype):
         for a, b in pairs:
             assert a.dtype == b.dtype and a.shape == b.shape
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['row_o2_bf16', 'row_valid_f32',
+                                  'row_valid_bf16', 'b3_o2_bf16',
+                                  'b3_o2_f32', 'ragged_bf16', 'ragged_f32',
+                                  'c3_bf16', 'kx5_bf16'])
+def test_dk_bodies_equal_plain_on_card(cuda, case):
+    """Each K8 body against dk_plain on the card: equal, and the launch
+    counts show which body ran."""
+    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(
+        cuda, dtype)
+    g = torch.from_numpy(rng.normal(size=(x_shape[0], *out, O)).astype(
+        np.float32)).to(cuda)
+    _build.launches.clear()
+    got = lc_cuda.dk_cuda(g, x, ks, padding, dtype)
+    want = lc_cuda.dk_plain(g, x, ks, padding, dtype)
+    torch.cuda.synchronize()
+    assert _build.launches['lc_dk'] == 1
+    assert _build.launches['lc_dk_row'] == (body == 'row')
+    assert got.dtype == want.dtype and torch.equal(got, want)

@@ -111,6 +111,8 @@ HIST_SHAPES = {   # (bs, V, B, alpha, clip, input range), as
     # tests/test_ops_kernels.py's Pallas checks use them
     '2x1000_B16': (2, 1000, 16, 150., (-np.inf, np.inf), (0., 1.)),
     '1x700_B8_clip': (1, 700, 8, 40., (0., 1.), (-1., 2.)),
+    # past one 64-bin chunk of K10: the reference takes any number of bins
+    '1x300_B65': (1, 300, 65, 1000., (-np.inf, np.inf), (0., 1.)),
 }
 
 
@@ -197,9 +199,25 @@ def test_mi_histograms_routes_and_errors():
         nt.ops.mi_histograms(xt, yt, cx, alpha, impl='xla')
     with pytest.raises(ValueError, match='CUDA'):
         mi_hist_cuda.mi_histograms_cuda(xt, yt, _t(cx), _t(cx), alpha)
-    assert mi_hist_cuda._launch_blocks(0) == 1
-    assert mi_hist_cuda._launch_blocks(1000) == 16
-    assert mi_hist_cuda._launch_blocks(128 ** 3) == mi_hist_cuda.MAX_BLOCKS
+    assert mi_hist_cuda._launch_blocks(0, 16, 1) == 1
+    assert mi_hist_cuda._launch_blocks(1000, 16, 1) == 16
+    assert mi_hist_cuda._launch_blocks(128 ** 3, 16,
+                                       1) == mi_hist_cuda.MAX_BLOCKS
+
+
+@pytest.mark.parametrize('bs', [1, 3])
+def test_mi_kernel_scratch_stays_bounded(bs):
+    """K10's partial sums stay within SCRATCH_ENTRIES floats, or one
+    block's sums a row (no larger than pxy), at every number of bins up to
+    MAX_BINS; up to 64 bins the blocks are those of one per tile."""
+    lb, n_vox = mi_hist_cuda._launch_blocks, 128 ** 3
+    for nb in (1, 16, 64, 65, 128, 1024, 4096, mi_hist_cuda.MAX_BINS):
+        nblk, entries = lb(n_vox, nb, bs), bs * nb * (nb + 2)
+        assert 1 <= nblk <= mi_hist_cuda.MAX_BLOCKS
+        assert nblk * entries <= max(mi_hist_cuda.SCRATCH_ENTRIES, entries)
+        if nb <= 64:
+            assert nblk == mi_hist_cuda.MAX_BLOCKS
+    assert lb(n_vox, mi_hist_cuda.MAX_BINS, bs) == 1
 
 
 def test_mi_histograms_nan_reaches_the_sums_as_in_jax():
@@ -427,3 +445,42 @@ def test_mi_kernel_matches_plain_on_card(cuda, case):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-5 * float(b.abs().max()))
         assert torch.equal(a, a2)   # no atomics: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nb_bins', [65, 128, 1024])
+def test_mi_kernel_many_bins_on_card(cuda, nb_bins):
+    """K10 past one 64-bin chunk (2 or 16 chunks each way; at 1024 bins
+    with fewer blocks, so the scratch stays bounded) at [1, 32^3]."""
+    rng = np.random.default_rng(nb_bins)
+    x, y = (torch.from_numpy(rng.uniform(size=(1, 32 ** 3)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    c = torch.linspace(0., 1., nb_bins, device=cuda)
+    alpha = nt.metrics.MutualInformation(nb_bins=nb_bins).soft_bin_alpha
+    k = mi_hist_cuda.mi_histograms_cuda(x, y, c, c, alpha)
+    k2 = mi_hist_cuda.mi_histograms_cuda(x, y, c, c, alpha)
+    p = mi_hist._mi_histograms_plain(x, y, c, c, alpha)
+    torch.cuda.synchronize()
+    for a, b, a2 in zip(k, p, k2):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
+def test_mi_kernel_reads_a_tensor_alpha_on_card(cuda):
+    """A CUDA 0-d alpha is read by the kernel: no host sync, and the bits
+    of the float-alpha call."""
+    x, y, cx, cy, alpha, _, _ = _hist_inputs('2x1000_B16')
+    xt, yt, ct, dt = (torch.from_numpy(a).to(cuda) for a in (x, y, cx, cy))
+    at = torch.tensor(alpha, dtype=torch.float32, device=cuda)
+    want = mi_hist_cuda.mi_histograms_cuda(xt, yt, ct, dt, alpha)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = mi_hist_cuda.mi_histograms_cuda(xt, yt, ct, dt, at)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
