@@ -50,30 +50,33 @@ launch counts set to 0 just before it and read just after. Phases (phase
      share);
  10. LC: K7 (forward), K8 (dk) and K9 (dx) vs their plain versions at the
      config #3 head's shapes (x [1, 160^3, 4], weights [1, 108, 160^3],
-     g [1, 160^3, 1]; bfloat16 and float32): equal, K8 through its row
-     body; at 32^3 with 2 filters and batch 3, in both weight layouts: K7
-     and K9 within 1e-6 of the largest magnitude, K8 equal, by its
-     one-voxel body; K8 at batch 1: [1, 15, 17, 19, 4] (W = 19: the
-     one-voxel body), [1, 16, 17, 24, 4] (the row body, V a multiple of 8
-     but not of 8 x 256: a ragged last block), [1, 16, 17, 18, 4] 'valid'
-     (the row body without padding) and [1, 32^3, 4] with 2 filters (the
-     row body's filter loop), bf16 and f32: equal (each K8 check names the
-     body that ran, from the launch counts); the keras-layout
-     `lc3d_pallas` (the v1 semantics, bf16 products rounded in dx) at
-     [160^3, 4], forward and both gradients: equal; the card's write rate
-     for dk's bytes (`torch.empty_like(dk).zero_()` at [1, 108, 160^3]
-     bf16), a bandwidth probe beside K8's time;
+     g [1, 160^3, 1]; bfloat16 and float32): equal, each through its row
+     body; at 32^3 with 2 filters and batch 3, in both weight layouts:
+     equal, by the one-voxel bodies; at batch 1: [1, 15, 17, 19, 4]
+     (W = 19: the one-voxel bodies), [1, 16, 17, 24, 4] (the row bodies, V
+     a multiple of 8 but not of 8 x 256: a ragged last block), [1, 16, 17,
+     18, 4] 'valid' (K7's and K8's row bodies without padding, K9's
+     one-voxel body) and [1, 32^3, 4] with 2 filters (the row bodies'
+     filter loops), bf16 and f32: equal. Each check names the body that
+     ran, from the launch counts (`lc_fwd_row`, `lc_dk_row`, `lc_dx_row`).
+     The keras-layout `lc3d_pallas` (the v1 semantics, bf16 products
+     rounded in dx) at [160^3, 4], forward and both gradients: equal, by
+     the one-voxel bodies, and those kernels' times. Bandwidth probes: the
+     card's read rate for the weights' bytes (`w.sum(dtype=float32)` at
+     [1, 108, 160^3] bf16) beside K7 and K9, K7 timed twice, and its
+     write rate for dk's (`torch.empty_like(dk).zero_()`) beside K8;
  11. one float32 config #3 step at 64^3 through the kernels and one through
      the plain versions from the same weights (TF32 off, deterministic
      cuDNN): losses within rtol 1e-5, each gradient within 1e-4 of its
-     largest magnitude;
+     largest magnitude; K7, K8 and K9 each once, by its row body;
  12. config #3 (`bench.py:335-372`): the UNet trunk (nb_features=8,
      nb_levels=3, feat_mult=2, linear output, bf16 compute) feeding
      LocallyConnected3D(filters=1, kernel_size=3, 'same', bf16 weights
      [1, 108, 160^3]), MSE, Adam 1e-4, 160^3, 10 steps: finite losses,
-     launch counts of K1, K2 and K7-K9 exactly those of 10 steps, K8 by its
-     row body every step (`lc_dk_row`), median step ms, vol/s, peak
-     memory; a profile of 3 steps;
+     launch counts of K1, K2 and K7-K9 exactly those of 10 steps, each of
+     K7-K9 by its row body every step (`lc_fwd_row`, `lc_dk_row`,
+     `lc_dx_row`), median step ms, vol/s, peak memory; a profile of 3
+     steps;
  13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
      16 bins and centers from the data, at [2, 1000], [1, 128^3 + 37], 8
      bins clipped to [0, 1] on inputs in [-1, 2], with one NaN voxel, and
@@ -898,32 +901,39 @@ def lc_bound(name, x, k, g):
     return live * ksz + gb + xb, 2 * live * batch   # dx: read weights, g
 
 
-def dk_body_run(kern):
-    """(result, K8 body that ran) of kern(), one K8 launch, read from the
-    launch counts."""
-    before = _build.launches['lc_dk_row']
+def body_run(name, kern):
+    """(result, body that ran: 'row' or 'voxel') of kern(), one launch of
+    kernel `name` ('lc_fwd', 'lc_dk' or 'lc_dx'), read from the launch
+    counts."""
+    before = _build.launches[name + '_row']
     out = kern()
-    return out, 'row' if _build.launches['lc_dk_row'] > before else 'voxel'
+    return out, 'row' if _build.launches[name + '_row'] > before else 'voxel'
 
 
 def phase_lc(checks, res):
     print('== 10. LC K7/K8/K9 vs plain', flush=True)
     gen = torch.Generator(device='cuda').manual_seed(10)
-    # the head's shapes: bf16 (the step's types), then float32; equal, and
-    # K8 through its row body
+    # the head's shapes: bf16 (the step's types), then float32; equal, each
+    # through its row body
     for dtype in (torch.bfloat16, torch.float32):
         x, k, g = lc_inputs(gen, 1, LC_VOL, 4, 1, dtype)
+        if dtype == torch.bfloat16:
+            # the card's read rate for the weights' bytes: a bandwidth probe
+            # beside K7 and K9, not a library call (none is an LC conv)
+            read_ms = time_ms(lambda: k.sum(dtype=torch.float32))
+            kb = k.numel() * k.element_size()
+            print(f'  read ceiling probe (bandwidth, not library_ms): '
+                  f'w.sum(dtype=float32) at {list(k.shape)} bf16: '
+                  f'{read_ms:.4f} ms = {kb / read_ms / 1e9:.3f} TB/s',
+                  flush=True)
         for name, kern, plain in lc_calls(x, k, g, False):
-            (a, body), b = dk_body_run(kern), plain()
+            (a, body), b = body_run(name, kern), plain()
             torch.cuda.synchronize()
             err = max_abs_err(a, b)
             tag = f'{str(dtype)[6:]} x {list(x.shape)} w {list(k.shape)}'
-            body_ok = name != 'lc_dk' or body == 'row'
-            checks.check(f'{name} {tag}', bit_equal(a, b) and body_ok,
+            checks.check(f'{name} {tag}', bit_equal(a, b) and body == 'row',
                          f'equal {bool(torch.equal(a, b))}, max abs err '
-                         f'{err:.3g}'
-                         + (f', K8 body {body} (row expected)'
-                            if name == 'lc_dk' else ''))
+                         f'{err:.3g}, body {body} (row expected)')
             r = res[name]
             r['max_abs_err'] = max(r['max_abs_err'], err)
             del a, b
@@ -938,6 +948,16 @@ def phase_lc(checks, res):
                   f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
                   f'({r["bound_by"]}; {nbytes} B, {flops} flop); one kernel '
                   f'call {c_ms:.4f} ms', flush=True)
+            if name in ('lc_fwd', 'lc_dx'):
+                live = lc_live_weights(x.shape[1:4], 1, 4) * k.element_size()
+                print(f'  {name} reads the live weights at '
+                      f'{live / r["ms"] / 1e9:.3f} TB/s; read probe '
+                      f'{read_ms:.4f} ms', flush=True)
+            if name == 'lc_fwd':
+                # a second reading in the same process: the spread of
+                # K7's time on one card
+                print(f'  lc_fwd second reading: {time_ms(kern):.4f} ms',
+                      flush=True)
             if name == 'lc_dk':
                 # the card's write rate for dk's bytes: a bandwidth probe,
                 # not a library call (no PyTorch call is an LC dk)
@@ -950,33 +970,29 @@ def phase_lc(checks, res):
                       f'{nb / r["ms"] / 1e9:.3f} TB/s of dk', flush=True)
         del x, k, g
     # 2 filters, batch 3, both weight layouts: the strides, the filter loop
-    # and the batch fold (K8 by its one-voxel body)
+    # and the batch fold (each by its one-voxel body); equal
     for dtype in (torch.bfloat16, torch.float32):
         x, k, g = lc_inputs(gen, 3, 32, 4, 2, dtype)
         for keras in (False, True):
             kk = k.permute(2, 1, 0).contiguous() if keras else k
             for name, kern, plain in lc_calls(x, kk, g, keras):
-                (a, body), b = dk_body_run(kern), plain()
+                (a, body), b = body_run(name, kern), plain()
                 torch.cuda.synchronize()
                 err = max_abs_err(a, b)
-                rel = err / max(float(b.float().abs().max()), 1e-30)
-                if name == 'lc_dk':   # K8: equal, through the right body
-                    ok = bit_equal(a, b) and body == 'voxel'
-                    more = f'; K8 body {body} (voxel expected)'
-                else:
-                    ok, more = rel <= 1e-6, ''
                 checks.check(
                     f'{name} {str(dtype)[6:]} 32^3 O=2 B=3 '
-                    f'{"keras" if keras else "transposed"}', ok,
-                    f'max abs err / max {rel:.3g} (1e-6); equal '
-                    f'{bool(torch.equal(a, b))}{more}')
+                    f'{"keras" if keras else "transposed"}',
+                    bit_equal(a, b) and body == 'voxel',
+                    f'equal {bool(torch.equal(a, b))}, max abs err '
+                    f'{err:.3g}, body {body} (voxel expected)')
                 res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
-    # K8 off the head's shape, batch 1: W = 19 (a thread's voxels would
-    # cross rows: the one-voxel body); W = 24, V = 16*17*24 = 6528 (the row
-    # body, V a multiple of 8 voxels but not of 8 x 256: a ragged last
-    # block); 'valid' at [16, 17, 18], out [14, 15, 16] (the row body
-    # without padding); 32^3 with 2 filters (the row body's filter loop);
-    # equal
+    # off the head's shape, batch 1: W = 19 (a thread's voxels would cross
+    # rows: the one-voxel bodies); W = 24, V = 16*17*24 = 6528 (the row
+    # bodies, V a multiple of 8 voxels but not of 8 x 256: a ragged last
+    # block, and warps that span two rows); 'valid' at [16, 17, 18], out
+    # [14, 15, 16] (K7's and K8's row bodies without padding; K9's row body
+    # takes 'same' only); 32^3 with 2 filters (the row bodies' filter
+    # loops); equal
     for sp, padding, O, want in (((15, 17, 19), 'same', 1, 'voxel'),
                                  ((16, 17, 24), 'same', 1, 'row'),
                                  ((16, 17, 18), 'valid', 1, 'row'),
@@ -985,15 +1001,30 @@ def phase_lc(checks, res):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn((1, *sp, 4), generator=gen,
                             device='cuda').to(dtype)
+            k = torch.randn((O, 108, math.prod(out)), generator=gen,
+                            device='cuda').to(dtype)
             g = torch.randn((1, *out, O), generator=gen, device='cuda')
-            a, body = dk_body_run(
-                lambda: lc_cuda.dk_cuda(g, x, LC_KS, padding, dtype))
-            b = lc_cuda.dk_plain(g, x, LC_KS, padding, dtype)
-            torch.cuda.synchronize()
-            checks.check(f'lc_dk {str(dtype)[6:]} x {list(x.shape)} O={O} '
-                         f'{padding}', bit_equal(a, b) and body == want,
-                         f'equal {bool(torch.equal(a, b))}, K8 body {body} '
-                         f'({want} expected)')
+            shape = tuple(x.shape)
+            for name, kern, plain in (
+                    ('lc_fwd', lambda: lc_cuda.fwd_cuda(x, k, LC_KS, padding),
+                     lambda: lc_cuda.fwd_plain(x, k, LC_KS, padding)),
+                    ('lc_dk', lambda: lc_cuda.dk_cuda(g, x, LC_KS, padding,
+                                                      dtype),
+                     lambda: lc_cuda.dk_plain(g, x, LC_KS, padding, dtype)),
+                    ('lc_dx', lambda: lc_cuda.dx_cuda(g, k, LC_KS, padding,
+                                                      shape, dtype),
+                     lambda: lc_cuda.dx_plain(g, k, LC_KS, padding, shape,
+                                              dtype))):
+                expect = 'voxel' if name == 'lc_dx' and padding == 'valid' \
+                    else want
+                (a, body), b = body_run(name, kern), plain()
+                torch.cuda.synchronize()
+                checks.check(f'{name} {str(dtype)[6:]} x {list(x.shape)} '
+                             f'O={O} {padding}',
+                             bit_equal(a, b) and body == expect,
+                             f'equal {bool(torch.equal(a, b))}, max abs err '
+                             f'{max_abs_err(a, b):.3g}, body {body} '
+                             f'({expect} expected)')
 
     # the keras-layout v1 entry point through autograd, at the head's shape
     sp, V = (LC_VOL,) * 3, LC_VOL ** 3
@@ -1001,8 +1032,15 @@ def phase_lc(checks, res):
     k2 = torch.randn((V, 108), generator=gen, device='cuda').bfloat16()
     gf = torch.randn((V, 1), generator=gen, device='cuda')
     xr, kr = xf.clone().requires_grad_(), k2.clone().requires_grad_()
+    rows = sum(_build.launches[n + '_row'] for n in ('lc_fwd', 'lc_dk',
+                                                      'lc_dx'))
     y = lc_cuda.lc3d_pallas(xr, kr, sp, LC_KS)
     dx, dk = torch.autograd.grad(y, (xr, kr), gf)
+    rows = sum(_build.launches[n + '_row'] for n in ('lc_fwd', 'lc_dk',
+                                                      'lc_dx')) - rows
+    checks.check('lc3d_pallas (keras, v1) bodies', rows == 0,
+                 f'{rows} row-body launches (0 expected: the keras strides '
+                 f'take the one-voxel bodies)')
     x5, g5 = xf.reshape(1, *sp, 4), gf.reshape(1, *sp, 1)
     kv = lc_cuda._weight_view(k2, True)
     want = (lc_cuda.fwd_plain(x5, kv, LC_KS, 'same').reshape(V, 1),
@@ -1017,6 +1055,12 @@ def phase_lc(checks, res):
         checks.check(f'lc3d_pallas (keras, v1) bf16 [{V}, 4] {what}',
                      bit_equal(a, b), f'max abs err {err:.3g}')
         res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+    # the keras-layout kernels' times at the head (Pallas rows 9-11; no
+    # layer routes the step to them)
+    times = [f'{name} {time_ms(kern):.4f} ms'
+             for name, kern, _ in lc_calls(x5, k2, g5, True)]
+    print(f'  keras-layout kernels (one-voxel bodies) at [{V}, 4] bf16: '
+          + ', '.join(times), flush=True)
 
 
 class EncDecLC(torch.nn.Module):
@@ -1079,8 +1123,9 @@ def phase_lc_check(checks):
             del model, state
         (lk, nk, gk), (lp, np_, gp) = runs['auto'], runs['plain']
         checks.check('config #3 f32 launches', all(
-            nk.get(n, 0) == c for n, c in (('lc_fwd', 1), ('lc_dk', 1),
-                                           ('lc_dk_row', 1), ('lc_dx', 1),
+            nk.get(n, 0) == c for n, c in (('lc_fwd', 1), ('lc_fwd_row', 1),
+                                           ('lc_dk', 1), ('lc_dk_row', 1),
+                                           ('lc_dx', 1), ('lc_dx_row', 1),
                                            ('pool2_fwd', 2),
                                            ('pool2_bwd', 2)))
             and not np_, f'kernels {nk}, plain {np_}')
@@ -1128,8 +1173,8 @@ def phase_lc_train(checks, res):
     moments = state.optimizer.state[model.lc.kernel]['exp_avg'].dtype
     checks.check('config #3 head moments in the parameter dtype',
                  moments == torch.bfloat16, str(moments))
-    per_step = {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1, 'lc_dk': 1,
-                'lc_dk_row': 1, 'lc_dx': 1}
+    per_step = {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1, 'lc_fwd_row': 1,
+                'lc_dk': 1, 'lc_dk_row': 1, 'lc_dx': 1, 'lc_dx_row': 1}
     for name, n in per_step.items():
         got, want = counts.get(name, 0), n * TRAIN_STEPS
         checks.check(f'config #3 launches {name}', got == want and got > 0,

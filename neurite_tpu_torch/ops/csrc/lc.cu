@@ -29,21 +29,38 @@
 // offsets are int64, since O*TC*V passes 2^31), and K8 and K9 handle four
 // channels of a tap together, so their loads are in flight together.
 //
-// K8 has two bodies, picked by the caller (`lc_cuda.dk_body`). With one
-// voxel a thread (`lc_dk_kernel`, any layout and shape) each row store is 2
-// bytes (bf16) a thread, 64 bytes a warp, and each x load 2 bytes: at the
-// config #3 head that is 13.8 M store and as many load instructions a warp
-// for 885 MB, and the kernel ran at 0.65 TB/s. The row body
-// (`lc_dk_row_kernel`) takes B = 1, C = 4, kx <= 3 and Wo a multiple of 16
-// bytes of voxels (8 bf16 or 4 float32) in the transposed layout (s_v = 1,
-// rows and base 16-byte aligned): the config #3 head. A thread owns 16 bytes
-// of consecutive voxels of one output row, so each (t, c, o) row is one
-// 16-byte streaming store a thread and 512 contiguous bytes a warp (dk is
-// written once and not reread, so it need not push x out of L2); per (tz,
-// ty) it loads the NV + kx - 1 input voxels its taps along W reach once,
-// four channels a load, and keeps them in registers for every tx, channel
-// and filter. 0.33 ms at the head on an H100 80GB HBM3 (700 W), 83 % of its
-// bytes bound.
+// Each kernel has two bodies, picked by the caller (`lc_cuda.fwd_body`,
+// `dk_body`, `dx_body`). With one voxel a thread (`lc_fwd_kernel`,
+// `lc_dk_kernel`, `lc_dx_kernel`: any layout and shape) each weight is a
+// 2-byte (bf16) load or store a thread, 64 bytes a warp: at the config #3
+// head that is 13.8 M load or store instructions a warp for 885 MB, and the
+// kernels ran at 0.65 (K8), 1.1 (K7) and 1.0 TB/s (K9) on an H100 80GB HBM3
+// (700 W). The row bodies take B = 1, C = 4, kx <= 3 and Wo a multiple of
+// 16 bytes of voxels (NV: 8 bf16 or 4 float32 weights) in the transposed
+// layout (s_v = 1, rows and base 16-byte aligned): the config #3 head. A
+// thread owns NV consecutive voxels of one row, so each (t, c, o) row is
+// one aligned 16-byte streaming access a thread and 512 contiguous bytes a
+// warp, and the weights are read (K7, K9) or written (K8) once without
+// pushing x and g out of L2:
+// - K8 (`lc_dk_row_kernel`) and K7 (`lc_fwd_row_kernel`) own NV output
+//   voxels; per (tz, ty) they load the NV + kx - 1 input voxels their taps
+//   along W reach once, four channels a load, and keep them in registers
+//   for every tx and channel (K8: and filter). K7 loads the kx * 4 rows of
+//   a (tz, ty) together, the taps in the padding too (they multiply 0).
+// - K9 (`lc_dx_row_kernel`, 'same' padding only, so W = Wo) owns NV input
+//   voxels: tap (tz, ty, tx) reads the output row at vx = ux + j + px - tx,
+//   one voxel off the thread's aligned 16 bytes for the taps off the centre
+//   along W. It loads its own aligned 16 bytes and takes the one element
+//   beyond them from the neighbouring lane's (a warp shuffle; lanes 0 and
+//   31 load it, 2 bytes), masked by its vx where a warp spans two rows.
+// The bytes each moves at the head: 884.7 MB of weights (K8 writes all of
+// them; K7 and K9 read the 873.7 MB whose taps reach the volume, plus the
+// few rows that a thread's 16 bytes share with them), 32.8 MB of x or dx
+// and 16.4 MB of g or y. Measured at the head, bf16, on an H100 80GB HBM3
+// (700 W; `chip_smoke.py` phase 10), against bytes bounds of 0.279 ms (K8)
+// and 0.276 ms (K7, K9): K8's row body 0.33 ms, K7's 0.31 ms (the one-voxel
+// body: 0.79), K9's 0.36 ms (0.85); the card reads the weights alone
+// (`w.sum()`) in 0.30 ms.
 //
 // Semantics, exactly as the plain versions (ops/lc_tap.py):
 // - K7: y[b, v, o] = sum over taps t, then channels c, of
@@ -59,8 +76,9 @@
 //   to the weights' dtype (the v1 q, pallas_lc.py:292). The sum starts at
 //   +0 and is rounded once to x's dtype, written by the kernel.
 // Products and sums use __fmul_rn and __fadd_rn, so nvcc cannot contract them
-// into FMAs: the kernels equal the plain versions bit for bit. K8's row
-// body runs at B = 1 only, where each value is one product rounded once.
+// into FMAs: the kernels equal the plain versions bit for bit. Each row body
+// keeps its one-voxel body's order for each voxel (and channel): K8's runs
+// at B = 1 only, where each value is one product rounded once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -225,6 +243,33 @@ __device__ __forceinline__ void store_row(float* p, const float (&v)[4]) {
   __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
 }
 
+// NV voxels of 4 channels each, rounded once, by 16-byte stores: two voxels
+// a store in bf16 (channel c of a voxel in the low or high half of word
+// c / 2, as Quad<bf16> reads them), one in float32.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(from_f32<bf16>(lo)) |
+         ((unsigned)__bfloat16_as_ushort(from_f32<bf16>(hi)) << 16);
+}
+
+template <int NV>
+__device__ __forceinline__ void store_quads(bf16* p, const float (&a)[NV][4]) {
+#pragma unroll
+  for (int j = 0; j < NV; j += 2)
+    reinterpret_cast<uint4*>(p)[j / 2] = make_uint4(
+        pack_bf16(a[j][0], a[j][1]), pack_bf16(a[j][2], a[j][3]),
+        pack_bf16(a[j + 1][0], a[j + 1][1]),
+        pack_bf16(a[j + 1][2], a[j + 1][3]));
+}
+
+template <int NV>
+__device__ __forceinline__ void store_quads(float* p,
+                                            const float (&a)[NV][4]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    reinterpret_cast<float4*>(p)[j] =
+        make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
+}
+
 // Voxels a thread of the K8 row body owns: 16 bytes of weights.
 template <typename TK>
 __host__ __device__ constexpr int row_voxels() {
@@ -297,6 +342,271 @@ lc_dk_row_kernel(const float* __restrict__ gr, const TX* __restrict__ x,
   }
 }
 
+// 16 bytes of one weight row (NV consecutive voxels) by one streaming load
+// (read once: it need not push x or g out of L2), and its element j widened
+// to float32 (bf16 j in the low or high half of word j / 2).
+template <typename T>
+struct Row;
+template <>
+struct Row<bf16> {
+  typedef uint4 type;
+  __device__ static uint4 load(const bf16* p) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static float elem(uint4 q, int j) {
+    const unsigned w = j < 2 ? q.x : (j < 4 ? q.y : (j < 6 ? q.z : q.w));
+    return __uint_as_float(j & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+template <>
+struct Row<float> {
+  typedef float4 type;
+  __device__ static float4 load(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float elem(float4 q, int j) {
+    return j == 0 ? q.x : (j == 1 ? q.y : (j == 2 ? q.z : q.w));
+  }
+};
+
+// The K7 row body, for K8's row conditions (`lc_cuda.fwd_body`): a thread
+// owns NV voxels of one output row. Per filter and (tz, ty) it loads the
+// kx * 4 weight rows of its voxels together, one aligned 16-byte streaming
+// load each (the taps in the padding too: they multiply 0, as the plain
+// version's padded copy does), and the NV + kx - 1 input voxels its taps
+// along W reach, as K8's row body does; each voxel's sum runs in the
+// one-voxel body's order (taps, then channels, from -0). y is written by
+// 16-byte stores at one filter, else one float a voxel.
+template <typename TX, typename TK>
+__global__ void __launch_bounds__(256)
+lc_fwd_row_kernel(const TX* __restrict__ x, const TK* __restrict__ k,
+                  float* __restrict__ y, Geo g) {
+  constexpr int NV = row_voxels<TK>();
+  constexpr int NW = NV + kRowTaps - 1;
+  typedef Quad<TX> Q;
+  typedef Row<TK> R;
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Vo = Wo * Ho * (int)g.Do;
+  const int grp = blockIdx.x * blockDim.x + threadIdx.x;
+  if (grp >= Vo / NV) return;
+  const int v0 = grp * NV;
+  const int D = (int)g.D, H = (int)g.H, W = (int)g.W, kx = (int)g.kx;
+  const int wo = v0 % Wo, ho = (v0 / Wo) % Ho, zo = v0 / (Wo * Ho);
+  const int O = (int)g.O;
+  for (int o = 0; o < O; ++o) {
+    const TK* kv = k + o * g.s_o + v0;
+    float acc[NV];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) acc[j] = -0.f;
+    for (int tz = 0; tz < (int)g.kz; ++tz) {
+      const int zi = zo + tz - (int)g.pz;
+      for (int ty = 0; ty < (int)g.ky; ++ty) {
+        const int yi = ho + ty - (int)g.py;
+        const bool ok = zi >= 0 && zi < D && yi >= 0 && yi < H;
+        const int64_t t0 = (tz * g.ky + ty) * g.kx;
+        typename R::type w[kRowTaps][kChans];
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+#pragma unroll
+          for (int c = 0; c < kChans; ++c)
+            w[tx][c] = tx < kx ? R::load(kv + ((t0 + tx) * kChans + c) * g.s_t)
+                               : typename R::type{};
+        }
+        const TX* xr = x + (ok ? (int64_t)(zi * H + yi) * W * kChans : 0);
+        typename Q::type win[NW];
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          const int xi = wo - (int)g.px + i;
+          win[i] = ok && i < NV + kx - 1 && xi >= 0 && xi < W
+                       ? Q::load(xr + xi * kChans)
+                       : typename Q::type{};
+        }
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+          if (tx >= kx) break;
+#pragma unroll
+          for (int c = 0; c < kChans; ++c) {
+#pragma unroll
+            for (int j = 0; j < NV; ++j)
+              acc[j] = __fadd_rn(acc[j], __fmul_rn(R::elem(w[tx][c], j),
+                                                   Q::chan(win[j + tx], c)));
+          }
+        }
+      }
+    }
+    if (O == 1) {
+#pragma unroll
+      for (int j = 0; j < NV; j += 4)
+        *reinterpret_cast<float4*>(y + v0 + j) =
+            make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) y[(int64_t)(v0 + j) * O + o] = acc[j];
+    }
+  }
+}
+
+// The element beyond a lane's aligned 16 bytes at ux of one row that tap
+// shift d (vx = ux + j + d) needs, where the neighbouring lane that holds it
+// is in another warp: lane 31 for d = 1, lane 0 for d = -1 (a 2-byte load,
+// issued with the rows' loads); else 0.
+template <int NV, typename TK>
+__device__ __forceinline__ float edge(const TK* row, int d, int ux, int W,
+                                      int lane, bool on) {
+  if (d > 0) return lane == 31 && on && ux + NV < W ? to_f32(row[ux + NV]) : 0.f;
+  if (d < 0) return lane == 0 && on && ux > 0 ? to_f32(row[ux - 1]) : 0.f;
+  return 0.f;
+}
+
+// The weights at vx = ux + j + d (j < NV, d in {-1, 0, 1}, known at compile
+// time) of one row, from the aligned 16 bytes q at ux that this lane loaded:
+// d = 0 is q itself; the element off q's edge is the edge of the
+// neighbouring lane's q (one shuffle), or e (`edge`) at lanes 31 and 0.
+// Every lane of the warp calls it with the same d (the shuffle takes the
+// full warp); the caller masks the elements outside [0, W), which the
+// shuffle may bring from another row.
+template <typename TK, int NV>
+__device__ __forceinline__ void shifted_row(typename Row<TK>::type q, float e,
+                                            int d, int lane, float (&w)[NV]) {
+  typedef Row<TK> R;
+  if (d > 0) {
+    const float n = __shfl_down_sync(0xffffffffu, R::elem(q, 0), 1);
+    e = lane == 31 ? e : n;
+  } else if (d < 0) {
+    const float n = __shfl_up_sync(0xffffffffu, R::elem(q, NV - 1), 1);
+    e = lane == 0 ? e : n;
+  }
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    w[j] = d == 0 ? R::elem(q, j)
+                  : (d > 0 ? (j + 1 < NV ? R::elem(q, j + 1) : e)
+                           : (j > 0 ? R::elem(q, j - 1) : e));
+}
+
+// acc[j][c] += m[j] where tap shift d keeps voxel j's output voxel (vx =
+// ux + j + d, in a row that is inside when ok) inside [0, W).
+template <int NV>
+__device__ __forceinline__ void add_tap(float (&acc)[NV][kChans], int c,
+                                        const float (&m)[NV], int d, int ux,
+                                        int W, bool ok) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vx = ux + j + d;
+    if (ok && vx >= 0 && vx < W) acc[j][c] = __fadd_rn(acc[j][c], m[j]);
+  }
+}
+
+// The K9 row body, for B = 1, C = 4, kx <= 3, 'same' padding (W = Wo,
+// PX = (kx - 1) / 2) and W % NV == 0 in the transposed layout
+// (`lc_cuda.dx_body`): a thread owns NV input voxels u of one row, and tap
+// (tz, ty, tx) reads the output row (vz, vy) at vx = ux + j + PX - tx. Per
+// (tz, ty) it loads g at the NV + 2 voxels those taps reach and, at one
+// filter, the kx * 4 weight rows together, one aligned 16-byte streaming
+// load each at its own ux: the taps off the centre along W take the one
+// element beyond from a neighbouring lane (`shifted_row`). Each (voxel,
+// channel) sums as the one-voxel body does: m over filters in order (at one
+// filter m is the product: -0 + p == p), then taps in order from +0, a tap
+// whose output voxel lies outside skipped (+0 + m == m: the sum is never
+// -0). Every lane runs every tap (a lane past the end works on the last
+// group and stores nothing), so the shuffles see the whole warp. dx is
+// written by 16-byte stores. Two blocks an SM (at most 128 registers) keep
+// enough rows in flight.
+template <typename TX, typename TK, int PX>
+__global__ void __launch_bounds__(256, 2)
+lc_dx_row_kernel(const float* __restrict__ gr, const TK* __restrict__ k,
+                 TX* __restrict__ dx, Geo g, int round_q) {
+  constexpr int NV = row_voxels<TK>();
+  constexpr int NG = NV + kRowTaps - 1;
+  typedef Row<TK> R;
+  const int W = (int)g.W, H = (int)g.H, V = W * H * (int)g.D;
+  const int ngrp = V / NV;
+  const int grp0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = grp0 < ngrp;
+  const int u0 = (live ? grp0 : ngrp - 1) * NV;
+  const int ux = u0 % W, uy = (u0 / W) % H, uz = u0 / (W * H);
+  const int Ho = (int)g.Ho, Do = (int)g.Do, O = (int)g.O, kx = (int)g.kx;
+  const int lane = threadIdx.x & 31;
+  float acc[NV][kChans];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+#pragma unroll
+    for (int c = 0; c < kChans; ++c) acc[j][c] = 0.f;
+  }
+  for (int tz = 0; tz < (int)g.kz; ++tz) {
+    const int vz = uz - tz + (int)g.pz;
+    for (int ty = 0; ty < (int)g.ky; ++ty) {
+      const int vy = uy - ty + (int)g.py;
+      const bool ok = vz >= 0 && vz < Do && vy >= 0 && vy < Ho;
+      const int64_t vrow = ok ? (int64_t)(vz * Ho + vy) * W : 0;
+      // the rows of tap (tz, ty, 0), channel 0, filter 0
+      const TK* kt = k + (tz * g.ky + ty) * g.kx * kChans * g.s_t + vrow;
+      // filter 0's g at vx = ux + PX - (kRowTaps - 1) + i
+      float g0[NG];
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const int vx = ux + PX - (kRowTaps - 1) + i;
+        g0[i] = ok && vx >= 0 && vx < W ? gr[(vrow + vx) * O] : 0.f;
+      }
+      if (O == 1) {
+        typename R::type q[kRowTaps][kChans];
+        float e[kRowTaps][kChans];
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+#pragma unroll
+          for (int c = 0; c < kChans; ++c) {
+            const TK* row = kt + (tx * kChans + c) * g.s_t;
+            const bool on = ok && tx < kx;
+            q[tx][c] = on ? R::load(row + ux) : typename R::type{};
+            e[tx][c] = edge<NV>(row, PX - tx, ux, W, lane, on);
+          }
+        }
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+          if (tx >= kx) break;
+#pragma unroll
+          for (int c = 0; c < kChans; ++c) {
+            float w[NV], m[NV];
+            shifted_row<TK, NV>(q[tx][c], e[tx][c], PX - tx, lane, w);
+#pragma unroll
+            for (int j = 0; j < NV; ++j) {
+              m[j] = __fmul_rn(w[j], g0[j + kRowTaps - 1 - tx]);
+              if (round_q) m[j] = to_f32(from_f32<TK>(m[j]));
+            }
+            add_tap(acc, c, m, PX - tx, ux, W, ok);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+          if (tx >= kx) break;
+          const int d = PX - tx;
+#pragma unroll
+          for (int c = 0; c < kChans; ++c) {
+            float w[NV], m[NV];
+            for (int o = 0; o < O; ++o) {
+              const TK* row = kt + (tx * kChans + c) * g.s_t + o * g.s_o;
+              shifted_row<TK, NV>(
+                  ok ? R::load(row + ux) : typename R::type{},
+                  edge<NV>(row, d, ux, W, lane, ok), d, lane, w);
+#pragma unroll
+              for (int j = 0; j < NV; ++j) {
+                const int vx = ux + j + d;
+                float p = __fmul_rn(
+                    w[j], o == 0 ? g0[j + kRowTaps - 1 - tx]
+                          : (ok && vx >= 0 && vx < W ? gr[(vrow + vx) * O + o]
+                                                     : 0.f));
+                if (round_q) p = to_f32(from_f32<TK>(p));
+                m[j] = o == 0 ? p : __fadd_rn(m[j], p);
+              }
+            }
+            add_tap(acc, c, m, d, ux, W, ok);
+          }
+        }
+      }
+    }
+  }
+  if (live) store_quads(dx + (int64_t)u0 * kChans, acc);
+}
+
 // One thread per input voxel u (blockIdx.y: the batch item): its C
 // cotangents, kChans channels at a time.
 template <typename TX, typename TK>
@@ -364,16 +674,21 @@ unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// row: the row body, whose conditions (`lc_cuda.fwd_body`, `dk_body`,
+// `dx_body`) the caller has checked; else the one-voxel body.
 template <typename TX, typename TK>
-void fwd(const void* x, const void* k, float* y, const Geo& g,
+void fwd(const void* x, const void* k, float* y, const Geo& g, int row,
          cudaStream_t s) {
-  const dim3 grid(blocks_for(g.Do * g.Ho * g.Wo), (unsigned)g.B);
-  lc_fwd_kernel<TX, TK><<<grid, kThreads, 0, s>>>((const TX*)x, (const TK*)k,
-                                                  y, g);
+  const int64_t Vo = g.Do * g.Ho * g.Wo;
+  if (row)
+    lc_fwd_row_kernel<TX, TK>
+        <<<blocks_for(Vo / row_voxels<TK>()), kThreads, 0, s>>>(
+            (const TX*)x, (const TK*)k, y, g);
+  else
+    lc_fwd_kernel<TX, TK><<<dim3(blocks_for(Vo), (unsigned)g.B), kThreads, 0,
+                            s>>>((const TX*)x, (const TK*)k, y, g);
 }
 
-// row: the row body, whose conditions (`lc_cuda.dk_body`) the caller has
-// checked; else the one-voxel body.
 template <typename TX, typename TK>
 void dkk(const float* gr, const void* x, void* dk, const Geo& g, int row,
          cudaStream_t s) {
@@ -389,10 +704,18 @@ void dkk(const float* gr, const void* x, void* dk, const Geo& g, int row,
 
 template <typename TX, typename TK>
 void dxk(const float* gr, const void* k, void* dx, const Geo& g, int round_q,
-         cudaStream_t s) {
-  const dim3 grid(blocks_for(g.D * g.H * g.W), (unsigned)g.B);
-  lc_dx_kernel<TX, TK><<<grid, kThreads, 0, s>>>(gr, (const TK*)k, (TX*)dx,
-                                                 g, round_q);
+         int row, cudaStream_t s) {
+  const int64_t V = g.D * g.H * g.W;
+  const unsigned nb = blocks_for(V / row_voxels<TK>());
+  if (row && g.px == 1)
+    lc_dx_row_kernel<TX, TK, 1><<<nb, kThreads, 0, s>>>(gr, (const TK*)k,
+                                                       (TX*)dx, g, round_q);
+  else if (row)
+    lc_dx_row_kernel<TX, TK, 0><<<nb, kThreads, 0, s>>>(gr, (const TK*)k,
+                                                       (TX*)dx, g, round_q);
+  else
+    lc_dx_kernel<TX, TK><<<dim3(blocks_for(V), (unsigned)g.B), kThreads, 0,
+                           s>>>(gr, (const TK*)k, (TX*)dx, g, round_q);
 }
 
 }  // namespace
@@ -401,22 +724,22 @@ extern "C" {
 
 // geo: the 18 int64 fields of Geo, in order. x_bf16 / k_bf16 pick the
 // dtypes of x and of the weights (bfloat16 when 1, float32 when 0). The
-// caller keeps each volume under 2^31 voxels and B under 65536.
+// caller keeps each volume under 2^31 voxels and B under 65536. row picks
+// the row body (1: B = 1, C = 4, kx <= 3, Wo % (16 bytes of weights) == 0,
+// the transposed layout with 16-byte aligned rows and base, x aligned to
+// its 4-channel voxels; K9 also 'same' padding) or the one-voxel body (0:
+// any layout and shape).
 int neurite_lc_fwd(const void* x, const void* k, float* y, const int64_t* geo,
-                   int x_bf16, int k_bf16, cudaStream_t stream) {
+                   int x_bf16, int k_bf16, int row, cudaStream_t stream) {
   const Geo g = make_geo(geo);
   if (g.B * g.Do * g.Ho * g.Wo == 0) return 0;
-  if (x_bf16 && k_bf16) fwd<bf16, bf16>(x, k, y, g, stream);
-  else if (x_bf16) fwd<bf16, float>(x, k, y, g, stream);
-  else if (k_bf16) fwd<float, bf16>(x, k, y, g, stream);
-  else fwd<float, float>(x, k, y, g, stream);
+  if (x_bf16 && k_bf16) fwd<bf16, bf16>(x, k, y, g, row, stream);
+  else if (x_bf16) fwd<bf16, float>(x, k, y, g, row, stream);
+  else if (k_bf16) fwd<float, bf16>(x, k, y, g, row, stream);
+  else fwd<float, float>(x, k, y, g, row, stream);
   return (int)cudaGetLastError();
 }
 
-// row picks K8's row body (1: B = 1, C = 4, kx <= 3, Wo % (16 bytes of
-// weights) == 0, the transposed layout with 16-byte aligned rows and base,
-// x aligned to its 4-channel voxels) or its one-voxel body (0: any layout
-// and shape).
 int neurite_lc_dk(const float* gr, const void* x, void* dk, const int64_t* geo,
                   int x_bf16, int k_bf16, int row, cudaStream_t stream) {
   const Geo g = make_geo(geo);
@@ -429,13 +752,14 @@ int neurite_lc_dk(const float* gr, const void* x, void* dk, const int64_t* geo,
 }
 
 int neurite_lc_dx(const float* gr, const void* k, void* dx, const int64_t* geo,
-                  int x_bf16, int k_bf16, int round_q, cudaStream_t stream) {
+                  int x_bf16, int k_bf16, int round_q, int row,
+                  cudaStream_t stream) {
   const Geo g = make_geo(geo);
   if (g.B * g.D * g.H * g.W == 0) return 0;
-  if (x_bf16 && k_bf16) dxk<bf16, bf16>(gr, k, dx, g, round_q, stream);
-  else if (x_bf16) dxk<bf16, float>(gr, k, dx, g, round_q, stream);
-  else if (k_bf16) dxk<float, bf16>(gr, k, dx, g, round_q, stream);
-  else dxk<float, float>(gr, k, dx, g, round_q, stream);
+  if (x_bf16 && k_bf16) dxk<bf16, bf16>(gr, k, dx, g, round_q, row, stream);
+  else if (x_bf16) dxk<bf16, float>(gr, k, dx, g, round_q, row, stream);
+  else if (k_bf16) dxk<float, bf16>(gr, k, dx, g, round_q, row, stream);
+  else dxk<float, float>(gr, k, dx, g, round_q, row, stream);
   return (int)cudaGetLastError();
 }
 

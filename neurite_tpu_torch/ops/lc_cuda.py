@@ -10,8 +10,9 @@ three kernels serve both layouts.
 Each op takes its plain version (`ops/lc_tap.py`) for a CPU tensor and
 launches its kernel for a CUDA tensor, raising on what the kernel does not
 take. Every launch adds one to `_build.launches['lc_fwd' | 'lc_dk' |
-'lc_dx']`; a K8 launch that takes the row body (`dk_body`) also adds
-one to `_build.launches['lc_dk_row']`. The domain (`supported`) is 3-D,
+'lc_dx']`; a launch that takes its kernel's row body (`fwd_body`,
+`dk_body`, `dx_body`) also adds one to `_build.launches['lc_fwd_row' |
+'lc_dk_row' | 'lc_dx_row']`. The domain (`supported`) is 3-D,
 stride 1, 'same' or 'valid', any filters and channels, float32 or
 bfloat16: the TPU gates of `pallas_lc2.supported` (H % 8, the 512-term
 unroll cap, VMEM) have no counterpart on the card. `interpret` is
@@ -101,12 +102,32 @@ def fwd_cuda(x, kview, kernel_size, padding):
                     device=x.device)
     geo, xb, kb = _launch_args(tuple(x.shape), kview, kernel_size, padding,
                                x.dtype)
+    row = fwd_body(x, kview, kernel_size, padding) == 'row'
     lib = _build.library()
     with torch.cuda.device(x.device):
         lib.call('neurite_lc_fwd', x.data_ptr(), kview.data_ptr(),
-                 y.data_ptr(), geo, xb, kb, _build.stream_of(x))
-    _build.launches['lc_fwd'] += 1
+                 y.data_ptr(), geo, xb, kb, int(row), _build.stream_of(x))
+    _count('lc_fwd', row)
     return y
+
+
+def _count(name, row):
+    """One launch of kernel `name`, by its row body if `row`."""
+    _build.launches[name] += 1
+    if row:
+        _build.launches[name + '_row'] += 1
+
+
+def _rows_of_16_bytes(x_shape, view, kernel_size, wo):
+    """Batch 1, 4 channels, a kernel at most 3 wide along W, and 16 bytes of
+    weights (8 bfloat16 or 4 float32 voxels) a thread within one row of
+    length wo of the transposed layout: unit voxel stride, rows and base
+    16-byte aligned."""
+    nv = 16 // view.element_size()
+    s_o, s_t, s_v = view.stride()
+    return (x_shape[0] == 1 and x_shape[-1] == 4 and kernel_size[2] <= 3
+            and wo % nv == 0 and s_v == 1 and s_t % nv == 0
+            and s_o % nv == 0 and view.data_ptr() % 16 == 0)
 
 
 def dk_body(x, view, kernel_size, padding):
@@ -117,14 +138,42 @@ def dk_body(x, view, kernel_size, padding):
     a kernel at most 3 wide along W, Wo a multiple of those voxels, the
     transposed layout (unit voxel stride, rows and base 16-byte aligned)
     and x aligned to its 4-channel voxels (the config #3 head); else
-    'voxel', one voxel a thread (any layout and shape)."""
-    nv = 16 // view.element_size()
-    s_o, s_t, s_v = view.stride()
+    'voxel', one voxel a thread (any layout and shape). At the head the
+    row body runs 0.33 ms against the one-voxel body's 1.35 (NVIDIA H100
+    80GB HBM3, 700 W; `chip_smoke.py` phase 10)."""
     wo = lc_tap._out_shape(x.shape[1:4], kernel_size, padding)[2]
-    row = (x.shape[0] == 1 and x.shape[-1] == 4 and kernel_size[2] <= 3
-           and wo % nv == 0 and s_v == 1 and s_t % nv == 0
-           and s_o % nv == 0 and view.data_ptr() % 16 == 0
+    row = (_rows_of_16_bytes(tuple(x.shape), view, kernel_size, wo)
            and x.data_ptr() % (4 * x.element_size()) == 0)
+    return 'row' if row else 'voxel'
+
+
+def fwd_body(x, view, kernel_size, padding):
+    """The K7 body (`csrc/lc.cu`) that reads the weights' [O, TC, V] view
+    `view` for x [B, D, H, W, C]: 'row' on K8's row conditions (`dk_body`),
+    where each (tap, channel, filter) row of a thread's voxels is one
+    aligned 16-byte load and its taps' input voxels are loaded once per
+    (tz, ty); else 'voxel', one voxel a thread and a 2-byte load a weight.
+    Both read the weights whose taps reach the volume once (873.7 MB at
+    the config #3 head, bf16), where the row body runs 0.31 ms and the
+    one-voxel body 0.79 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py`
+    phase 10)."""
+    return dk_body(x, view, kernel_size, padding)
+
+
+def dx_body(x_shape, view, kernel_size, padding):
+    """The K9 body (`csrc/lc.cu`) that writes dx [*x_shape] from the
+    weights' [O, TC, V] view `view`: 'row' on K8's row conditions with
+    'same' padding (W = Wo), where a thread owns the input voxels of 16
+    bytes of weights (8 bfloat16 or 4 float32) in one row and reads each
+    (tap, channel, filter) row with one aligned 16-byte load, the one
+    element beyond it for the taps off the centre along W coming from the
+    neighbouring lane; else 'voxel',
+    one voxel a thread and a 2-byte load a weight. Both read the weights
+    whose taps reach the volume once (873.7 MB at the config #3 head,
+    bf16), where the row body runs 0.36 ms and the one-voxel body 0.85
+    (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py` phase 10)."""
+    row = padding == 'same' and _rows_of_16_bytes(
+        tuple(x_shape), view, kernel_size, x_shape[3])
     return 'row' if row else 'voxel'
 
 
@@ -153,9 +202,7 @@ def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
     with torch.cuda.device(x.device):
         lib.call('neurite_lc_dk', g.data_ptr(), x.data_ptr(), dk.data_ptr(),
                  geo, xb, kb, int(row), _build.stream_of(x))
-    _build.launches['lc_dk'] += 1
-    if row:
-        _build.launches['lc_dk_row'] += 1
+    _count('lc_dk', row)
     return dk
 
 
@@ -174,12 +221,13 @@ def dx_cuda(g, kview, kernel_size, padding, x_shape, x_dtype, round_q=False):
         raise ValueError(f'g {tuple(g.shape)} does not fit x {x_shape}')
     geo, xb, kb = _launch_args(tuple(x_shape), kview, kernel_size, padding,
                                x_dtype)
+    row = dx_body(tuple(x_shape), kview, kernel_size, padding) == 'row'
     lib = _build.library()
     with torch.cuda.device(g.device):
         lib.call('neurite_lc_dx', g.data_ptr(), kview.data_ptr(),
-                 dx.data_ptr(), geo, xb, kb, int(bool(round_q)),
+                 dx.data_ptr(), geo, xb, kb, int(bool(round_q)), int(row),
                  _build.stream_of(g))
-    _build.launches['lc_dx'] += 1
+    _count('lc_dx', row)
     return dx
 
 

@@ -12,8 +12,8 @@ Tolerances: float32 within rtol 1e-5 and atol 1e-5 (the sums run in
 another order than XLA's); bfloat16 outputs within one bf16 ulp of JAX's,
 and dk at B=1 equal (both round the same float32 product once). On the
 card (`cuda` tests) the kernels must equal the plain versions, each body
-of K8 (`lc_cuda.dk_body`: 16-byte rows of voxels a thread, or one voxel)
-included.
+of K7, K8 and K9 (`lc_cuda.fwd_body`, `dk_body`, `dx_body`: 16-byte rows
+of voxels a thread, or one voxel) included.
 """
 import numpy as np
 import pytest
@@ -322,6 +322,42 @@ def test_dk_body_needs_aligned_bases():
                            'same') == 'voxel'
 
 
+@pytest.mark.parametrize('case', sorted(DK_BODIES))
+def test_fwd_body_picks_by_layout_and_shape(case):
+    """K7's row body takes K8's row conditions: the same body for every
+    case of DK_BODIES."""
+    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
+    assert lc_cuda.fwd_body(x, view, ks, padding) == body
+
+
+@pytest.mark.parametrize('case', sorted(DK_BODIES))
+def test_dx_body_picks_by_layout_and_shape(case):
+    """K9's row body takes K8's row conditions with 'same' padding (W =
+    Wo): 'valid' takes the one-voxel body."""
+    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
+    want = body if padding == 'same' else 'voxel'
+    assert lc_cuda.dx_body(x_shape, view, ks, padding) == want
+
+
+def test_fwd_dx_bodies_need_aligned_bases():
+    """Weights that start off a 16-byte boundary take the one-voxel bodies
+    of K7 and K9, and so does an x off its 4-channel voxels for K7 (K9
+    writes a dx it allocates)."""
+    ks, shape = (3, 3, 3), (1, 4, 4, 8, 4)
+    x, view = _dk_args(shape, 1, torch.bfloat16, device='cpu')
+    assert lc_cuda.fwd_body(x, view, ks, 'same') == 'row'
+    assert lc_cuda.dx_body(shape, view, ks, 'same') == 'row'
+    flat = torch.empty(view.numel() + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(view.shape)
+    assert lc_cuda.fwd_body(x, off, ks, 'same') == 'voxel'
+    assert lc_cuda.dx_body(shape, off, ks, 'same') == 'voxel'
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+    assert lc_cuda.fwd_body(flat[1:].view(x.shape), view, ks,
+                            'same') == 'voxel'
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -378,3 +414,43 @@ def test_dk_bodies_equal_plain_on_card(cuda, case):
     assert _build.launches['lc_dk'] == 1
     assert _build.launches['lc_dk_row'] == (body == 'row')
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+ROW_CASES = {   # name: (x_shape, O, padding, K7's and K9's bodies)
+    # V = 6528: a ragged last block, and warps that span two rows
+    'ragged_block': ((1, 16, 17, 24, 4), 1, 'same', 'row', 'row'),
+    'o2_32': ((1, 32, 32, 32, 4), 2, 'same', 'row', 'row'),
+    'valid': ((1, 16, 17, 18, 4), 1, 'valid', 'row', 'voxel'),
+    'w19': ((1, 15, 17, 19, 4), 1, 'same', 'voxel', 'voxel'),
+    'b3': ((3, 16, 17, 24, 4), 1, 'same', 'voxel', 'voxel'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(ROW_CASES))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fwd_dx_bodies_equal_plain_on_card(cuda, case, dtype):
+    """K7 and K9 against fwd_plain and dx_plain on the card, each body (and
+    K9's rounded products, round_q): equal, and the launch counts show
+    which body ran."""
+    x_shape, O, padding, fwd_want, dx_want = ROW_CASES[case]
+    ks = (3, 3, 3)
+    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
+    rng = np.random.default_rng(8)
+    x, k, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda) for s in (x_shape, (O, 108, int(np.prod(out))),
+                        (x_shape[0], *out, O)))
+    x, k = x.to(dtype), k.to(dtype)
+    _build.launches.clear()
+    got = lc_cuda.fwd_cuda(x, k, ks, padding)
+    want = lc_cuda.fwd_plain(x, k, ks, padding)
+    torch.cuda.synchronize()
+    assert _build.launches['lc_fwd_row'] == (fwd_want == 'row')
+    assert torch.equal(got, want)
+    for round_q in (False, True):
+        _build.launches.clear()
+        got = lc_cuda.dx_cuda(g, k, ks, padding, x_shape, dtype, round_q)
+        want = lc_cuda.dx_plain(g, k, ks, padding, x_shape, dtype, round_q)
+        torch.cuda.synchronize()
+        assert _build.launches['lc_dx_row'] == (dx_want == 'row')
+        assert got.dtype == want.dtype and torch.equal(got, want)
