@@ -36,18 +36,24 @@ launch counts set to 0 just before it and read just after. Phases (phase
   8. blur: K6 vs the plain per-axis convs at [3, 64^3] with 41 taps and
      [1, 128^3] with 165 and 7 taps: forward within 1e-5 of max|y|, dx
      within 1e-5 and the tap gradients within 1e-4 of their largest
-     magnitude (sums over up to 2M products in other orders);
+     magnitude (sums over up to 2M products in other orders); each of the
+     9 distinct axis passes alone within 1e-5 of max|y|, by the 'whole'
+     body (`blur_cuda.plan`, counted in `blur_whole`), with its ms beside
+     its own bound; one pass each at ragged shapes (L and the columns not
+     multiples of 8 or 32, post 1 with 105 rows, one tap, 165 taps on a
+     20-voxel axis) and by the 'halo' body (a 4096-voxel axis; 1001 and
+     6143 taps in chunks), each check naming the body that ran;
   9. config #5 (bench.py's synth_rate): `labels_to_image_new(labels_in=
      range(16), out_shape=(128,)*3, one_hot=True)` feeding the bf16 UNet
      (nb_labels=16) for 10 steps of synthesis then train step; finite
-     losses, one-hot maps, launch counts of K1-K4 and K6 exactly those of
-     10 steps; synthesis ms, step ms, vol/s, peak memory; no host sync in
-     the synthesis (CUDA's sync debug mode); the synthesis through the
-     kernels against the plain CPU path on the same raw draws at 64^3
-     (every K4 and K6 call of the path: the Perlin blurs, the squarings,
-     the label warp and the image blur); profiles
-     of 3 synthesis calls and of 3 steps (device time by kernel, idle
-     share);
+     losses, one-hot maps, launch counts of K1-K4 and K6 exactly those of 10
+     steps (each K6 launch by the 'whole' body); synthesis ms, step ms,
+     vol/s, peak memory; no host sync in the synthesis (CUDA's sync debug
+     mode); the synthesis through the kernels against the plain CPU path on
+     the same raw draws at 64^3 (every K4 and K6 call of the path: the
+     Perlin blurs, the squarings, the label warp and the image blur);
+     profiles of 3 synthesis calls and of 3 steps (device time by kernel,
+     idle share);
  10. LC: K7 (forward), K8 (dk) and K9 (dx) vs their plain versions at the
      config #3 head's shapes (x [1, 160^3, 4], weights [1, 108, 160^3],
      g [1, 160^3, 1]; bfloat16 and float32): equal, each through its row
@@ -79,30 +85,34 @@ launch counts set to 0 just before it and read just after. Phases (phase
      steps;
  13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
      16 bins and centers from the data, at [2, 1000], [1, 128^3 + 37], 8
-     bins clipped to [0, 1] on inputs in [-1, 2], with one NaN voxel, and
-     at [1, 64^3] with 65 and 128 bins and [1, 32^3] with 1024 (past one
-     64-bin chunk; fewer blocks at 1024, for the scratch): within 1e-5
-     of the largest magnitude, NaN where the plain version has it, two
-     calls bit-equal; alpha as a CUDA 0-d tensor, through the wrapper and
-     `ops.mi_histograms(impl='pallas')`, under CUDA's sync debug mode
-     'error': no host sync, bit-equal to the float-alpha call;
-     `MIHistograms`' dx and dy on the K10 route vs
-     the plain forward; the materialized route's time (two soft_quantize
-     maps and a bmm) as context;
+     bins clipped to [0, 1] on inputs in [-1, 2], with one NaN voxel, and at
+     [1, 64^3] with 5 and 17 bins (pair tiles of 4 x 4 that do not divide
+     them), 65 and 128 bins and [1, 32^3] with 1024 (past one 64-bin chunk;
+     fewer blocks at 1024, for the scratch): within 1e-5 of the largest
+     magnitude, NaN where the plain version has it, two calls bit-equal,
+     each by the 'tiled' body (`mi_hist_tiled`); alpha as a CUDA 0-d tensor,
+     through the wrapper and `ops.mi_histograms(impl='pallas')`, under
+     CUDA's sync debug mode 'error': no host sync, bit-equal to the float-
+     alpha call; `MIHistograms`' dx and dy on the K10 route vs the plain
+     forward; K10's time by its two launches; the materialized route's time
+     (two soft_quantize maps and a bmm) as context;
  14. one MI registration step at 64^3 (the field at +-2 voxels) on the card
      (K4, K10) and on the CPU (plain forms), both on the kernel route
      (`volumes_fused(impl='pallas')`): losses within rtol 1e-5, the field
      gradient within 1e-4 of its largest magnitude;
  15. MI registration at 128^3 (moving/fixed blob pair, field [1, 128^3, 3]
      from zero, clamp +-3, `MutualInformation(nb_bins=16)`, Adam 1e-2),
-     10 steps: finite, falling losses, launches exactly K10 10 and K4 10,
+     10 steps: finite, falling losses, launches exactly K10 10 (by the
+     'tiled' body) and K4 10,
      no host sync in a step, median step ms, pairs/s, peak memory, a
      profile of 3 steps, and the same steps through `MI.volumes` (twin).
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
 summed, over 20 (the host's launch time is not in it; "one kernel call"
-lines print the CUDA-event time of a call, which is). Each kernel's bound
+lines print the CUDA-event time of a call, which is; where the profiler
+records no event in three tries, CUDA events around the 20 calls, and a
+line before says so). Each kernel's bound
 is the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over the H100's peak for their type
 (float32 outside the tensor cores: 67 TFLOP/s); its `library_ms` is one
@@ -130,8 +140,9 @@ import torch
 
 import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
-from neurite_tpu_torch.ops import (_build, blur, dice_red, lc_cuda, mi_hist,
-                                   mi_hist_cuda, pool, pool_cuda, warp_cuda)
+from neurite_tpu_torch.ops import (_build, blur, blur_cuda, dice_red, lc_cuda,
+                                   mi_hist, mi_hist_cuda, pool, pool_cuda,
+                                   warp_cuda)
 from neurite_tpu_torch.utils import core, spatial
 
 VOL = 128
@@ -210,19 +221,67 @@ def device_events(prof):
     return rows
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Device time of one fn() call in ms: the durations of the device
-    events torch.profiler records over `reps` calls, summed, over reps.
-    The host's time between launches is not in it (see call_ms)."""
+def time_by_name(fn, reps=20, warmup=3):
+    """{device event name: ms of one fn() call}: the durations torch.profiler
+    records over `reps` calls, summed by name, over reps."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(3):   # the profiler now and then records no event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_events(prof)
+        if rows:
+            return {name: ms / reps for ms, _, name in rows}
+    # none in three tries: CUDA events around the reps (the host's launch
+    # time between the calls is then in it)
+    print('  (the profiler recorded no event in three tries: the next time '
+          'is by CUDA events around 20 calls)', flush=True)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return {'all launches (CUDA events; no profiler events)':
+            a.elapsed_time(b) / reps}
+
+
+def time_ms(fn, reps=20, warmup=3):
+    """Device time of one fn() call in ms: the durations of the device
+    events torch.profiler records over `reps` calls, summed, over reps.
+    The host's time between launches is not in it (see call_ms)."""
+    return sum(time_by_name(fn, reps, warmup).values())
+
+
+def clocks_under(fn, seconds=1.):
+    """(median SM clock MHz, median power W) that nvidia-smi samples every
+    50 ms while fn() runs back to back for about `seconds`; None where it
+    gives no sample. The sampler is stopped before this returns."""
+    smi = subprocess.Popen(
+        ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+         '--format=csv,noheader,nounits', '-lms', '50'],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
             fn()
-        torch.cuda.synchronize()
-    return sum(ms for ms, _, _ in device_events(prof)) / reps
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(v) for v in line.split(',')[:2]])
+        except ValueError:
+            continue
+    if not rows:
+        return None
+    return tuple(statistics.median(r[k] for r in rows) for k in (0, 1))
 
 
 def call_ms(fn, reps=20, warmup=3):
@@ -601,19 +660,41 @@ def phase_interpn(checks, res):
                  f'max abs err {errs[0]:.3g}, {errs[1]:.3g} (atol 1e-5)')
 
 
-def blur_flops(shape, widths):
-    """Operations a separable SAME blur of x [N, *spatial] needs: a
-    multiply-add for each tap that falls inside its axis (taps in the zero
-    padding need no work; a 165-tap window on a 128-voxel axis keeps about
-    112 of its taps per output)."""
+def blur_pass_flops(shape, a, width):
+    """Operations one SAME pass of x [N, *spatial] along spatial axis `a`
+    needs: a multiply-add for each tap that falls inside the axis (taps in
+    the zero padding need no work; a 165-tap window on a 128-voxel axis
+    keeps about 112 of its taps per output)."""
     n, *sp = shape
-    flops = 0
-    for a, width in enumerate(widths):
-        r, i = width // 2, np.arange(sp[a])
-        taps = int((np.minimum(i + r, sp[a] - 1) - np.maximum(i - r, 0)
-                    + 1).sum())
-        flops += 2 * n * (int(np.prod(sp)) // sp[a]) * taps
-    return flops
+    r, i = width // 2, np.arange(sp[a])
+    taps = int((np.minimum(i + r, sp[a] - 1) - np.maximum(i - r, 0)
+                + 1).sum())
+    return 2 * n * (int(np.prod(sp)) // sp[a]) * taps
+
+
+def blur_flops(shape, widths):
+    """Operations of a separable SAME blur: its three passes'."""
+    return sum(blur_pass_flops(shape, a, w) for a, w in enumerate(widths))
+
+
+def blur_body(fn):
+    """(result, K6 body that ran: 'whole' or 'halo') of fn(), one K6
+    launch, read from the launch counts."""
+    before = _build.launches['blur_whole']
+    out = fn()
+    return out, 'whole' if _build.launches['blur_whole'] > before else 'halo'
+
+
+# K6 beyond the path: (shape, axis, taps, body `blur_cuda.plan` gives)
+BLUR_RAGGED = [
+    ((2, 20, 33, 45), 1, 165, 'whole'),   # 165 taps on a 20-voxel axis
+    ((1, 37, 5, 6), 1, 7, 'whole'),       # L and post (30) not of 8 or 32
+    ((3, 7, 5, 29), 3, 41, 'whole'),      # post 1, pre 105, L 29
+    ((2, 6, 5, 11), 2, 1, 'whole'),       # one tap
+    ((1, 4096, 4, 4), 1, 165, 'halo'),    # a long axis: 64-row tiles
+    ((1, 400, 8, 40), 1, 1001, 'halo'),   # taps in chunks, post 320
+    ((1, 4, 4, 300), 3, 6143, 'halo'),    # taps in chunks, post 1
+]
 
 
 def phase_blur(checks, res):
@@ -687,12 +768,52 @@ def phase_blur(checks, res):
             print(f'  blur {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
                   f'{lib} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); one '
                   f'kernel call (3 launches) {c_ms:.4f} ms', flush=True)
+            # each axis pass alone: its ms, its own bound, the body that ran
+            for axis in (1, 2, 3):
+                (ya, body), yb = (blur_body(lambda: blur_cuda.blur_axis(
+                    x, k1, axis)), core.conv_axis(x, k1, axis - 1))
+                torch.cuda.synchronize()
+                ea = max_abs_err(ya, yb)
+                ta = 1e-5 * float(yb.abs().max())
+                checks.check(f'blur pass {tag} axis {axis}',
+                             ea <= ta and body == 'whole',
+                             f'max abs err {ea:.3g} (limit {ta:.3g}), body '
+                             f'{body} (whole expected)')
+                a_ms = time_ms(lambda: blur_cuda.blur_axis(x, k1, axis))
+                ba_ms, ba_by = bound_ms(
+                    2 * x.numel() * 4 + width * 4,
+                    blur_pass_flops(shape, axis - 1, width))
+                print(f'  blur pass {tag} axis {axis} ({body}): kernel '
+                      f'{a_ms:.4f} ms, bound {ba_ms:.4f} ms ({ba_by}), '
+                      f'{ba_ms / a_ms:.1%} of it', flush=True)
+                if width == 165 and axis == 1:
+                    clk = clocks_under(lambda: blur_cuda.blur_axis(
+                        x, k1, axis))
+                    print(f'  SM clock and power under that pass back to '
+                          f'back (nvidia-smi, median): {clk} (MHz, W)',
+                          flush=True)
             r['max_abs_err'] = max(r['max_abs_err'], err)
             for _ in range(per_step):   # a synthesis step's calls sum
                 r['ms'] += k_ms
                 r['plain_ms'] += p_ms
                 r['library_ms'] += l_ms
                 add_bound(r, nbytes, flops)
+
+        # shapes beyond the path: ragged lengths and columns, one tap, a
+        # window wider than its axis, the halo tiles and the taps in chunks
+        for shape, axis, width, want in BLUR_RAGGED:
+            x = torch.randn(shape, generator=gen, device='cuda')
+            k1 = torch.rand(width, generator=gen, device='cuda') + .1
+            (yk, body), yp = (blur_body(lambda: blur_cuda.blur_axis(
+                x, k1, axis)), core.conv_axis(x, k1, axis - 1))
+            torch.cuda.synchronize()
+            err = max_abs_err(yk, yp)
+            tol = 1e-5 * float(yp.abs().max())
+            checks.check(f'blur pass {list(shape)} axis {axis} {width} taps',
+                         err <= tol and body == want,
+                         f'max abs err {err:.3g} (limit {tol:.3g}), body '
+                         f'{body} ({want} expected, '
+                         f'{blur_cuda.plan(shape, axis, width)})')
     finally:
         torch.backends.cudnn.allow_tf32 = flags
 
@@ -805,8 +926,8 @@ def phase_synth_train(checks, res):
               and float(img.min()) >= 0 and float(img.max()) <= 1)
     checks.check('config #5 image finite in [0, 1]', img_ok,
                  f'shape {tuple(img.shape)}')
-    per_step = {'interpn': 6, 'blur': 12, 'pool2_fwd': 3, 'pool2_bwd': 3,
-                'dice_sums': 1}
+    per_step = {'interpn': 6, 'blur': 12, 'blur_whole': 12, 'pool2_fwd': 3,
+                'pool2_bwd': 3, 'dice_sums': 1}
     for name, n in per_step.items():
         got, want = counts.get(name, 0), n * TRAIN_STEPS
         checks.check(f'config #5 launches {name}', got == want and got > 0,
@@ -1264,14 +1385,17 @@ def phase_mi(checks, res):
     # scratch bound of mi_hist_cuda._launch_blocks)
     x64, y64 = rand((1, 64 ** 3)), rand((1, 64 ** 3))
     x32, y32 = rand((1, 32 ** 3)), rand((1, 32 ** 3))
-    for nb, xs, ys, tag in ((65, x64, y64, '64^3'), (128, x64, y64, '64^3'),
+    for nb, xs, ys, tag in ((5, x64, y64, '64^3'), (17, x64, y64, '64^3'),
+                            (65, x64, y64, '64^3'), (128, x64, y64, '64^3'),
                             (1024, x32, y32, '32^3')):
         c = torch.linspace(0., 1., nb, device='cuda')
         cases.append((f'[1, {tag}] B={nb}', xs, ys, c, c,
                       nt.metrics.MutualInformation(nb_bins=nb).soft_bin_alpha,
                       -np.inf, np.inf))
     for i, (name, x, y, cx, cy, a, lo, hi) in enumerate(cases):
+        before = _build.launches['mi_hist_tiled']
         k = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
+        body = 'tiled' if _build.launches['mi_hist_tiled'] > before else '-'
         k2 = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
         p = mi_hist._mi_histograms_plain(x, y, cx, cy, a, lo, hi)
         torch.cuda.synchronize()
@@ -1280,10 +1404,12 @@ def phase_mi(checks, res):
                      for u, w in zip(k, p))
         same = all(bit_equal(u, u2) for u, u2 in zip(k, k2))
         n_nan = sum(int(torch.isnan(u).sum()) for u in k)
-        checks.check(f'mi_hist {name}', rel <= 1e-5 and nan_ok and same,
+        checks.check(f'mi_hist {name}',
+                     rel <= 1e-5 and nan_ok and same and body == 'tiled',
                      f'max abs err / max |plain| {rel:.3g} (1e-5), NaN where '
                      f'plain has it {nan_ok} ({n_nan} NaN), two calls '
-                     f'bit-equal {same}')
+                     f'bit-equal {same}, body {body} '
+                     f'({mi_hist_cuda.plan(cx.numel())})')
         if i == 0:
             r['max_abs_err'] = max(max_abs_err(u, w) for u, w in zip(k, p))
 
@@ -1324,9 +1450,18 @@ def phase_mi(checks, res):
     checks.check('mi_hist backward (dx, dy) K10 route vs plain', rel <= 1e-5,
                  f'max abs err / max |g| {rel:.3g} (1e-5)')
 
-    # times at the path's shape
-    k_ms = time_ms(lambda: mi_hist_cuda.mi_histograms_cuda(
+    # times at the path's shape, and by K10's two launches
+    parts = time_by_name(lambda: mi_hist_cuda.mi_histograms_cuda(
         x, y, cx, cy, alpha))
+    k_ms = sum(parts.values())
+    clk = clocks_under(lambda: mi_hist_cuda.mi_histograms_cuda(
+        x, y, cx, cy, alpha))
+    print(f'  SM clock and power under K10 back to back (nvidia-smi, '
+          f'median): {clk} (MHz, W)', flush=True)
+    print('  mi_hist launches: ' + '; '.join(
+        f'{name.split("::")[-1].split("(")[0]} {ms:.4f} ms'
+        for name, ms in parts.items()),
+        flush=True)
     p_ms = time_ms(lambda: mi_hist._mi_histograms_plain(x, y, cx, cy, alpha))
 
     def materialized():   # MutualInformation.maps' route: two maps, a bmm
@@ -1377,6 +1512,7 @@ def phase_reg_check(checks):
         torch.backends.cuda.matmul.allow_tf32 = flag
     (lk, gk, nk), (lp, gp, np_) = runs['cuda'], runs['cpu']
     checks.check('MI registration launches', nk.get('mi_hist') == 1
+                 and nk.get('mi_hist_tiled') == 1
                  and nk.get('interpn') == 1 and not np_,
                  f'card {nk}, CPU {np_}')
     checks.check('MI registration loss card vs CPU',
@@ -1426,7 +1562,7 @@ def phase_reg_train(checks, res):
     checks.check('MI registration losses finite and falling',
                  all(np.isfinite(losses)) and losses[-1] < losses[0],
                  ' '.join(f'{v:.6f}' for v in losses))
-    for name in ('mi_hist', 'interpn'):
+    for name in ('mi_hist', 'mi_hist_tiled', 'interpn'):
         got = counts.get(name, 0)
         checks.check(f'MI registration launches {name}',
                      got == TRAIN_STEPS, f'{got} (expected 1 per step)')

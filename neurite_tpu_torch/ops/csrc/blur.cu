@@ -12,73 +12,224 @@
 // beyond the edge meet zeros). This kernel has no width cap.
 //
 // What bounds it on the card: at 7 taps, device memory (each pass reads and
-// writes the volume once: 16.8 MB for 128^3 float32 over three passes); at
-// 165 taps, float32 arithmetic outside the tensor cores (2 * V * K FLOP per
-// pass as written; the taps that meet the zero padding, about a third at 165
-// taps on 128 voxels, are work the function does not need). The design keeps each value read from device memory once per pass:
-// a block stages a tile of TL outputs along L by TQ columns along q, with its
-// 2r-row halo, in shared memory, and the taps beside it (they live in device
-// memory: the sigma is drawn on the device). Each thread then sums K products
-// out of shared memory into a register. With post > 1 a tile row is TQ
-// consecutive floats, so the loads coalesce and threads of a warp read
-// consecutive shared words; with post == 1 (the last axis) TQ is 1 and the
-// rows themselves are consecutive. Fusing the three passes into one pass over
-// the volume, as the TPU kernel does, is later work.
+// writes the volume once); at 41 and 165 taps, float32 multiply-adds
+// outside the tensor cores, counted over the taps that meet the axis only
+// (a 165-tap window on a 128-voxel axis keeps about 112 a voxel). A block
+// stages, computes and stores in turn, and at the path's shapes all blocks
+// fit in one wave, so the three phases add up rather than overlap.
+//
+// The design: the lines along the axis are the block's columns, 32 of them,
+// one a lane (the columns q of one p when post > 1; 32 rows p when post == 1,
+// the last axis, staged transposed so that no lane idles). A block stages
+// its columns' inputs in shared memory (8 loads of a thread in flight),
+// rows of 33 floats (the pad keeps both the transposed staging and the
+// lanes' reads free of bank conflicts), beside its taps, and computes into
+// a shared output tile that it stores once at the end, so that loads and
+// stores both run along q (post > 1) or along L (post == 1). A warp takes
+// groups of kR = 8 consecutive outputs along the axis, one column a lane,
+// with 8 sums in registers and a window of 8 inputs in registers: each tap
+// costs one new input read from shared memory and 8 multiply-adds, and the
+// taps come as warp-wide broadcast float4s, four at a time (10 shared loads
+// per 64 FMAs, against 2 per FMA before). The tap loop is unrolled by 8 so
+// that the window rotates without moves; a step of 8 taps whose next
+// inputs all lie inside the staged rows reads them without a bounds check
+// (warp-uniform). A group runs only the taps that reach an input in
+// [0, L), from the first such tap rounded down to a multiple of 4 (the
+// float4s; the few taps before it read zeros); its lanes share the group's
+// outputs, so the bounds are warp-uniform. Taps run in ascending order and
+// a skipped tap would have added fmaf(t, +0, acc) = acc, so each output's
+// sum is the plain loop's over all K taps, in its order. Rows outside
+// [0, L) are not staged: a read there gives 0.
+//
+// Two bodies, chosen by `blur_cuda.plan` (the launcher trusts it):
+// 'whole' stages the block's columns over the whole axis with every tap,
+// once (no halo re-reads; the config #5 axes, 64 and 128, take 17 and 34
+// KB); 'halo' takes 64-row tiles of outputs with their halo (any length),
+// and, when the taps with their rows do not fit in 48 KB, walks the taps in
+// chunks: each chunk stages its taps and the rows they reach, and the sums
+// carry from chunk to chunk in the shared output tile (the same order).
+// Fusing the three passes into one, as the TPU kernel does, is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void blur_axis_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ taps,
-                                 float* __restrict__ out, int64_t L,
-                                 int64_t post, int K, int TL, int TQ,
-                                 int64_t n_lt, int64_t n_qt) {
-  extern __shared__ float smem[];
-  float* sk = smem;      // K taps
-  float* sx = smem + K;  // (TL + K - 1) rows of TQ columns
-  const int r = K / 2;
-  int64_t t = blockIdx.x;
-  const int64_t qt = t % n_qt;
-  t /= n_qt;
-  const int64_t lt = t % n_lt;
-  const int64_t p = t / n_lt;
-  const int64_t i0 = lt * TL, q0 = qt * TQ;
-  const float* xp = x + p * L * post;
-  float* op = out + p * L * post;
+constexpr int kR = 8;         // outputs of a thread, consecutive on the axis
+constexpr int kCols = 32;     // columns of a block: one a lane
+constexpr int kRow = 33;      // floats of a shared row (32 columns + pad)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLoads = 8;     // staging loads of a thread in flight
 
-  for (int j = threadIdx.x; j < K; j += blockDim.x) sk[j] = taps[j];
-  const int rows = TL + K - 1;
-  for (int j = threadIdx.x; j < rows * TQ; j += blockDim.x) {
-    const int row = j / TQ, col = j % TQ;
-    const int64_t i = i0 - r + row, q = q0 + col;
-    sx[j] = (i >= 0 && i < L && q < post) ? xp[i * post + q] : 0.f;
+// One step of 8 taps from tap k (phase 0: w[m] holds the input of output m
+// at tap k) into acc; the steps past kend (the last, partial step) are
+// skipped. The inputs it reads next, rows j .. j + kR - 1 (j = base + k +
+// kR), are checked against [0, nrows) where kCheck is set; the caller
+// clears it where all of them lie inside.
+template <bool kCheck, bool kTail>
+__device__ __forceinline__ void taps8(const float* __restrict__ sx,
+                                      const float* __restrict__ skk,
+                                      int nrows, int lane, int j, int left,
+                                      float w[kR], float acc[kR]) {
+  const float4 ta = *reinterpret_cast<const float4*>(skk);
+  const float4 tb = *reinterpret_cast<const float4*>(skk + 4);
+  const float t[kR] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+#pragma unroll
+  for (int u = 0; u < kR; ++u) {
+    if (kTail && u >= left) break;
+#pragma unroll
+    for (int m = 0; m < kR; ++m) acc[m] = fmaf(t[u], w[(u + m) % kR], acc[m]);
+    const int jr = j + u;
+    w[u] = !kCheck || (unsigned)jr < (unsigned)nrows ? sx[jr * kRow + lane]
+                                                     : 0.f;
+  }
+}
+
+// Adds taps [k, kend] (ascending; k a multiple of 4 at or after the chunk
+// start kc) into acc[m], the output at row i + m: the input at staged row
+// base + t + m of column `lane`, 0 outside [0, nrows).
+__device__ __forceinline__ void run_taps(const float* __restrict__ sx,
+                                         const float* __restrict__ sk,
+                                         int nrows, int lane, int base, int k,
+                                         int kend, int kc, float acc[kR]) {
+  float w[kR];  // w[(u + m) % kR]: the input of output m at tap k + u
+#pragma unroll
+  for (int m = 0; m < kR; ++m) {
+    const int jr = base + k + m;
+    w[m] = (unsigned)jr < (unsigned)nrows ? sx[jr * kRow + lane] : 0.f;
+  }
+  for (; k + kR - 1 <= kend; k += kR) {
+    const int j = base + k + kR;
+    if (j >= 0 && j + kR <= nrows)  // warp-uniform: no row checks
+      taps8<false, false>(sx, sk + (k - kc), nrows, lane, j, kR, w, acc);
+    else
+      taps8<true, false>(sx, sk + (k - kc), nrows, lane, j, kR, w, acc);
+  }
+  if (k <= kend)  // the last taps, fewer than kR
+    taps8<true, true>(sx, sk + (k - kc), nrows, lane, base + k + kR,
+                      kend - k + 1, w, acc);
+}
+
+// grid: n_ct * n_lt blocks (column tile ct, row tile lt); dynamic shared
+// memory: taps [round4(KC) + 8], inputs [min(L, TL + KC - 1)][kRow],
+// outputs [round8(TL)][kRow] floats.
+__global__ void __launch_bounds__(kThreads)
+blur_axis_kernel(const float* __restrict__ x, const float* __restrict__ taps,
+                 float* __restrict__ out, int64_t L, int64_t post,
+                 int64_t ncols, int K, int TL, int KC, int64_t n_lt) {
+  extern __shared__ float4 smem4[];
+  const int kcs = (KC + 3) / 4 * 4 + 8;
+  const int rows_max = (int)(L < (int64_t)TL + KC - 1 ? L : TL + KC - 1);
+  float* sk = reinterpret_cast<float*>(smem4);
+  float* sx = sk + kcs;
+  float* so = sx + rows_max * kRow;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t lt = blockIdx.x % n_lt, ct = blockIdx.x / n_lt;
+  const int64_t i0 = lt * TL, c0 = ct * kCols;
+  const int tl = (int)(L - i0 < TL ? L - i0 : TL);
+  const int ngroups = (tl + kR - 1) / kR;
+  const int r = K / 2;
+  const bool last_axis = post == 1;
+  // post > 1: lane's column c0 + lane is (p, q) = (c / post, c % post)
+  const int64_t c = c0 + lane;
+  const bool col_ok = c < ncols;
+  const int64_t colbase = col_ok ? (c / post) * L * post + c % post : 0;
+
+  const int nchunks = (K + KC - 1) / KC;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int kc = ch * KC;
+    const int kn = K - kc < KC ? K - kc : KC;
+    // the rows this chunk's taps reach from the tile's outputs, in [0, L)
+    int64_t lo = i0 - r + kc, hi = i0 + tl - r + kc + kn - 1;
+    lo = lo < 0 ? 0 : lo;
+    hi = hi > L ? L : hi;
+    const int nrows = hi > lo ? (int)(hi - lo) : 0;
+    if (ch > 0) __syncthreads();  // the previous chunk's reads are done
+    for (int k = tid; k < kcs; k += kThreads)
+      sk[k] = k < kn ? taps[kc + k] : 0.f;
+    // kLoads loads of a thread in flight before their shared stores
+    if (last_axis) {  // coalesced along L, transposed into the columns
+      for (int cc = warp; cc < kCols; cc += kWarps) {
+        const int64_t col = c0 + cc;
+        const float* xc = x + (col < ncols ? col : 0) * L + lo;
+        for (int j0 = lane; j0 < nrows; j0 += 32 * kLoads) {
+          float v[kLoads];
+#pragma unroll
+          for (int u = 0; u < kLoads; ++u) {
+            const int j = j0 + 32 * u;
+            v[u] = col < ncols && j < nrows ? xc[j] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < kLoads; ++u)
+            if (j0 + 32 * u < nrows) sx[(j0 + 32 * u) * kRow + cc] = v[u];
+        }
+      }
+    } else {          // coalesced along q
+      const float* xc = x + colbase + lo * post;
+      for (int j0 = warp; j0 < nrows; j0 += kWarps * kLoads) {
+        float v[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int j = j0 + kWarps * u;
+          v[u] = col_ok && j < nrows ? xc[j * post] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          if (j0 + kWarps * u < nrows)
+            sx[(j0 + kWarps * u) * kRow + lane] = v[u];
+      }
+    }
+    __syncthreads();
+    for (int g = warp; g < ngroups; g += kWarps) {
+      const int64_t i = i0 + (int64_t)g * kR;
+      // taps that reach an input in [0, L) from outputs [i, i + kR)
+      const int64_t klo = r - i - (kR - 1), khi = r + L - 1 - i;
+      const int ka = (int)(klo > kc ? klo : kc);
+      const int kb = (int)(khi < kc + kn - 1 ? khi : kc + kn - 1);
+      float acc[kR];
+#pragma unroll
+      for (int m = 0; m < kR; ++m)  // a later chunk adds to its own sums
+        acc[m] = ch == 0 ? 0.f : so[(g * kR + m) * kRow + lane];
+      if (ka <= kb)
+        run_taps(sx, sk, nrows, lane, (int)(i - r - lo), ka & ~3, kb, kc, acc);
+#pragma unroll
+      for (int m = 0; m < kR; ++m) so[(g * kR + m) * kRow + lane] = acc[m];
+    }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < TL * TQ; j += blockDim.x) {
-    const int row = j / TQ, col = j % TQ;
-    const int64_t i = i0 + row, q = q0 + col;
-    if (i >= L || q >= post) continue;
-    const float* s = sx + row * TQ + col;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) acc = fmaf(sk[k], s[k * TQ], acc);
-    op[i * post + q] = acc;
+  // the output tile, stored as the inputs were loaded
+  if (last_axis) {
+    for (int cc = warp; cc < kCols; cc += kWarps) {
+      const int64_t col = c0 + cc;
+      if (col >= ncols) continue;
+      for (int j = lane; j < tl; j += 32)
+        out[col * L + i0 + j] = so[j * kRow + cc];
+    }
+  } else if (col_ok) {
+    for (int j = warp; j < tl; j += kWarps)
+      out[colbase + (i0 + j) * post] = so[j * kRow + lane];
   }
 }
 
 }  // namespace
 
+// TL: outputs of a row tile (L for the whole-axis body); KC: taps of a
+// chunk (K for one chunk; else a multiple of 4); smem: the dynamic shared
+// bytes of that layout (`blur_cuda.plan`).
 extern "C" int neurite_blur_axis_f32(const float* x, const float* taps,
                                      float* out, int64_t pre, int64_t L,
-                                     int64_t post, int K, int TL, int TQ,
-                                     cudaStream_t stream) {
-  const int threads = 256;
-  const int64_t n_lt = (L + TL - 1) / TL, n_qt = (post + TQ - 1) / TQ;
-  const int64_t blocks = pre * n_lt * n_qt;
-  if (blocks == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)(TL + K - 1) * TQ + K);
-  blur_axis_kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      x, taps, out, L, post, K, TL, TQ, n_lt, n_qt);
+                                     int64_t post, int K, int TL, int KC,
+                                     int smem, cudaStream_t stream) {
+  if (pre == 0 || L == 0 || post == 0) return 0;
+  if (TL < 1 || KC < 1 || (KC < K && KC % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int64_t ncols = pre * post;
+  const int64_t n_lt = (L + TL - 1) / TL, n_ct = (ncols + kCols - 1) / kCols;
+  const int64_t blocks = n_lt * n_ct;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  blur_axis_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      x, taps, out, L, post, ncols, K, TL, KC, n_lt);
   return (int)cudaGetLastError();
 }

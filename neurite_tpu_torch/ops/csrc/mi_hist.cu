@@ -11,31 +11,42 @@
 // What bounds it on the card: operations. Per voxel it does 2*B^2 flops
 // of the joint histogram and about 5*B of quantize (two maps of B bins,
 // each an exp), against 8 bytes read: at B=16 that is ~670 flops for
-// 8 bytes, far above the card's ~20 flop/byte balance in float32.
+// 8 bytes, far above the card's ~20 flop/byte balance in float32. In
+// issued instructions the maps weigh more than the joint sums: an accurate
+// expf with its argument, select and bin sum is ~14 instructions, so at
+// B = 16 a voxel costs ~14 warp instructions of maps against ~9 of the
+// joint loop (8 of them FMAs).
 //
-// The design keeps the [V, B] maps out of device memory. A block walks a
-// strided range of tiles of T voxels: its threads clip the tile's x and y
-// into shared memory, write the tile's maps xq[i][t], yq[j][t] there (t
-// fastest, rows padded by 4 floats so that float4 reads of one t-quad by
-// the lanes of a warp fall in distinct banks), and then each thread adds
-// the tile into the (i, j) entries it owns, kept in registers across
-// tiles; the first threads also sum px and py. Each thread reads two
-// shared float4s per four multiply-adds: shared-memory bandwidth, not the
-// FMA rate, is its limit (register tiling or mma is the next step). The
+// The design keeps the [V, B] maps out of device memory and the joint sums
+// in registers. A block walks a strided range of tiles of T voxels (256 up
+// to 16 bins, 128 up to 32, else 64: `mi_hist_cuda.plan`), loading the
+// next tile's x and y while it works on this one: its threads clip the
+// tile into shared memory, then write the tile's maps voxel-major, xq[t][i]
+// and yq[t][j] (bins fastest, rows of ceil(B/4) float4s), one accurate expf
+// per (voxel, bin), four bins a thread side by side and one float4 store;
+// each thread keeps its four bins' sums (px, py) in registers as it writes
+// them, so the marginals cost no pass over shared memory. Then each thread
+// adds the tile into a tile of 4 x 4 bin pairs that it owns, kept in
+// registers across tiles: per voxel one float4 of xq and one of yq, two
+// shared loads for 16 FMAs. The P = ceil(Bx/4) * ceil(By/4) pair tiles
+// take P threads; the block's 256 threads form G = min(T, 256 / P) voxel
+// groups (16 at B = 16, one at 64 bins), group g adding voxels g, g + G,
+// ... of each tile. At the end of the block the groups' sums, and the map
+// threads' bin sums, are added in a fixed order through shared memory. The
 // TPU kernel carried its sums across a sequential grid; blocks here run in
 // parallel, so each writes its partial sums [bs, nblk, B*B + 2B] and a
-// second launch adds them in a fixed order. There are no atomics, so two
-// calls give the same bits. The caller picks nblk (`mi_hist_cuda`), fewer
-// as B grows, so that the partials stay bounded.
+// second launch adds them in a fixed order (32 warps a block, each over
+// its share of the blocks with 8 loads in flight). There are no atomics,
+// so two calls give the same bits. The caller picks nblk (`mi_hist_cuda`),
+// fewer as B grows, so that the partials stay bounded.
 //
 // Past kChunk bins: the bins are cut into chunks of kChunk, and the
 // grid's third axis runs over the nc x nc pairs of chunks (nc =
 // ceil(B / kChunk)). Block (ci, cj) builds the maps of its x-chunk ci and
-// y-chunk cj only (shared memory stays at most 2 * kChunk * kRow floats),
-// keeps its <= kChunk^2 pairs in registers and writes them to their own
-// entries of the partials; the blocks with cj == 0 sum px of x-chunk ci,
-// those with ci == 0 py of y-chunk cj. Each map is rebuilt nc times. At
-// B <= kChunk there is one chunk: one block per tile range, as before.
+// y-chunk cj only, keeps its <= kChunk^2 pairs in registers and writes
+// them to their own entries of the partials; the blocks with cj == 0 sum
+// px of x-chunk ci, those with ci == 0 py of y-chunk cj. Each map is
+// rebuilt nc times. At B <= kChunk there is one chunk.
 //
 // The clip keeps NaN (a compare, not fminf/fmaxf), as jnp.clip and the
 // plain version do; voxels past V contribute nothing (the mask of
@@ -48,8 +59,7 @@
 
 namespace {
 
-constexpr int kTile = 64;        // voxels per tile
-constexpr int kRow = kTile + 4;  // padded row of a map in shared memory
+constexpr int kTileMax = 256;    // voxels per tile, at most
 constexpr int kThreads = 256;
 constexpr int kChunk = 64;       // bins per chunk
 
@@ -57,23 +67,55 @@ __device__ __forceinline__ float clip_keep_nan(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// grid (nblk, bs, nc * nc), blockIdx.z = ci * nc + cj; dynamic shared
-// memory 2 * min(B, kChunk) * kRow floats. With Bx and By the bins of
-// chunks ci and cj, thread tid owns the pairs p = tid + k * kThreads
-// (k < MAXK, p < Bx*By), i = p / By, j = p % By: global bins
-// (ci * kChunk + i, cj * kChunk + j).
-template <int MAXK>
+// Writes one tile's map q[t][i] = exp(-alpha (v[t] - c[i])^2) (0 past the
+// tile's valid voxels and past the chunk's nb bins; rows of nq float4s):
+// thread tid takes the bins 4 (tid % nq) + a, a < 4, of voxels tid / nq,
+// + step, ... (four independent exps, one float4 store), and adds its
+// values into m[a]; threads past nq * step do nothing. kMask: the tile or
+// the row has such a past; without it (full tiles, 4 | nb) no select.
+template <bool kMask>
+__device__ __forceinline__ void write_map(float4* __restrict__ q,
+                                          const float* __restrict__ v,
+                                          const float* __restrict__ c, int nb,
+                                          int nq, int T, int valid,
+                                          float alpha, int tid, float m[4]) {
+  const int step = kThreads / nq;
+  if (tid >= nq * step) return;
+  const int iq = tid % nq, i0 = 4 * iq;
+  float ci[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) ci[a] = c[i0 + a];
+#pragma unroll 2
+  for (int t = tid / nq; t < T; t += step) {
+    // no branches: the four exps run side by side, and a select (not a
+    // product, which would keep a NaN) zeroes what lies past the tile's
+    // voxels or the chunk's bins
+    const float vt = v[t];
+    float e[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float d = vt - ci[a];
+      const float ex = expf(-alpha * (d * d));
+      e[a] = !kMask || (t < valid && i0 + a < nb) ? ex : 0.f;
+      m[a] += e[a];
+    }
+    q[t * nq + iq] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+// grid (nblk, bs, nc * nc), blockIdx.z = ci * nc + cj; T voxels a tile;
+// dynamic shared memory `smem` bytes (`mi_hist_cuda.plan`): the maps, then
+// at the end the groups' sums. With Bx and By the bins of chunks ci and cj,
+// thread tid < G * P adds pair tile pt = tid % P (x-bins 4 * (pt / ntj) +
+// a, y-bins 4 * (pt % ntj) + b, a and b < 4) for voxel group g = tid / P.
 __global__ void __launch_bounds__(kThreads)
 mi_partial_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   const float* __restrict__ cx, const float* __restrict__ cy,
                   float* __restrict__ partial, int64_t n, int B, int nblk,
                   float alpha_val, const float* __restrict__ alpha_ptr,
-                  float lo, float hi) {
+                  float lo, float hi, int T) {
   extern __shared__ float4 sh4[];
-  const int Bc = B < kChunk ? B : kChunk;
-  float* xq = reinterpret_cast<float*>(sh4);   // [Bx][kRow]
-  float* yq = xq + Bc * kRow;                  // [By][kRow]
-  __shared__ float xs[kTile], ys[kTile], cxs[kChunk], cys[kChunk];
+  __shared__ float xs[kTileMax], ys[kTileMax], cxs[kChunk], cys[kChunk];
   __shared__ float alpha_sh;
 
   const int tid = threadIdx.x;
@@ -83,88 +125,73 @@ mi_partial_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int x0 = ci * kChunk, y0 = cj * kChunk;
   const int Bx = B - x0 < kChunk ? B - x0 : kChunk;
   const int By = B - y0 < kChunk ? B - y0 : kChunk;
-  const int Bm = Bx > By ? Bx : By;
+  const int nti = (Bx + 3) / 4, ntj = (By + 3) / 4;  // float4s of a map row
+  const int P = nti * ntj;
+  const int G = kThreads / P < T ? kThreads / P : T;
+  float4* xq = sh4;            // [T][nti]
+  float4* yq = xq + T * nti;   // [T][ntj]
   const bool sum_x = cj == 0, sum_y = ci == 0;
   const float* xb = x + b * n;
   const float* yb = y + b * n;
-  if (tid < Bx) cxs[tid] = cx[x0 + tid];
-  if (tid < By) cys[tid] = cy[y0 + tid];
+  if (tid < kChunk) {
+    cxs[tid] = tid < Bx ? cx[x0 + tid] : 0.f;
+    cys[tid] = tid < By ? cy[y0 + tid] : 0.f;
+  }
   if (tid == 0) alpha_sh = alpha_ptr ? *alpha_ptr : alpha_val;
 
-  int pi[MAXK], pj[MAXK];
-  float acc[MAXK];
+  const bool active = tid < G * P;
+  const int g = tid / P, pt = tid % P;
+  const int ti = pt / ntj, tj = pt % ntj;
+  float acc[4][4];
 #pragma unroll
-  for (int k = 0; k < MAXK; ++k) {
-    const int p = tid + k * kThreads;
-    pi[k] = p < Bx * By ? p / By : 0;
-    pj[k] = p < Bx * By ? p % By : 0;
-    acc[k] = 0.f;
-  }
-  float accx = 0.f, accy = 0.f;
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+  float mx[4] = {0.f, 0.f, 0.f, 0.f}, my[4] = {0.f, 0.f, 0.f, 0.f};
 
-  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  const int64_t n_tiles = (n + T - 1) / T;
+  // thread tid < T loads voxel tid of the block's next tile while it works
+  // on this one
+  float nx = 0.f, ny = 0.f;
+  auto fetch = [&](int64_t tile) {
+    const int64_t v = tile * T + tid;
+    if (tid < T && tile < n_tiles && v < n) {
+      nx = xb[v];
+      ny = yb[v];
+    }
+  };
+  fetch(blockIdx.x);
   for (int64_t tile = blockIdx.x; tile < n_tiles; tile += nblk) {
-    const int64_t v0 = tile * kTile;
-    const int valid = (int)(n - v0 < kTile ? n - v0 : kTile);
-    // stage the clipped tile
-    if (tid < kTile) {
-      if (tid < valid) xs[tid] = clip_keep_nan(xb[v0 + tid], lo, hi);
-    } else if (tid < 2 * kTile) {
-      const int t = tid - kTile;
-      if (t < valid) ys[t] = clip_keep_nan(yb[v0 + t], lo, hi);
+    const int64_t v0 = tile * T;
+    const int valid = (int)(n - v0 < T ? n - v0 : T);
+    if (tid < valid) {  // stage the clipped tile
+      xs[tid] = clip_keep_nan(nx, lo, hi);
+      ys[tid] = clip_keep_nan(ny, lo, hi);
     }
     __syncthreads();
+    fetch(tile + nblk);
     const float alpha = alpha_sh;
-    for (int r = tid; r < Bm * kTile; r += kThreads) {
-      const int i = r / kTile;
-      const int t = r % kTile;
-      if (i < Bx) {
-        float qx = 0.f;
-        if (t < valid) {
-          const float dx = xs[t] - cxs[i];
-          qx = expf(-alpha * (dx * dx));
-        }
-        xq[i * kRow + t] = qx;
-      }
-      if (i < By) {
-        float qy = 0.f;
-        if (t < valid) {
-          const float dy = ys[t] - cys[i];
-          qy = expf(-alpha * (dy * dy));
-        }
-        yq[i * kRow + t] = qy;
-      }
+    if (valid == T && Bx % 4 == 0 && By % 4 == 0) {
+      write_map<false>(xq, xs, cxs, Bx, nti, T, valid, alpha, tid, mx);
+      write_map<false>(yq, ys, cys, By, ntj, T, valid, alpha, tid, my);
+    } else {
+      write_map<true>(xq, xs, cxs, Bx, nti, T, valid, alpha, tid, mx);
+      write_map<true>(yq, ys, cys, By, ntj, T, valid, alpha, tid, my);
     }
     __syncthreads();
+    if (active) {
+      const float4* xr = xq + ti;
+      const float4* yr = yq + tj;
+#pragma unroll 4
+      for (int t = g; t < valid; t += G) {
+        const float4 p = xr[t * nti];
+        const float4 q = yr[t * ntj];
+        const float pa[4] = {p.x, p.y, p.z, p.w};
+        const float qa[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int k = 0; k < MAXK; ++k) {
-      if (tid + k * kThreads < Bx * By) {
-        const float4* xr = reinterpret_cast<const float4*>(xq + pi[k] * kRow);
-        const float4* yr = reinterpret_cast<const float4*>(yq + pj[k] * kRow);
-        float s = acc[k];
-        for (int t4 = 0; t4 < kTile / 4; ++t4) {
-          const float4 a = xr[t4];
-          const float4 c = yr[t4];
-          s = fmaf(a.x, c.x, s);
-          s = fmaf(a.y, c.y, s);
-          s = fmaf(a.z, c.z, s);
-          s = fmaf(a.w, c.w, s);
-        }
-        acc[k] = s;
-      }
-    }
-    if (sum_x && tid < Bx) {
-      const float4* xr = reinterpret_cast<const float4*>(xq + tid * kRow);
-      for (int t4 = 0; t4 < kTile / 4; ++t4) {
-        const float4 a = xr[t4];
-        accx = accx + a.x + a.y + a.z + a.w;
-      }
-    }
-    if (sum_y && tid < By) {
-      const float4* yr = reinterpret_cast<const float4*>(yq + tid * kRow);
-      for (int t4 = 0; t4 < kTile / 4; ++t4) {
-        const float4 c = yr[t4];
-        accy = accy + c.x + c.y + c.z + c.w;
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(pa[a], qa[c], acc[a][c]);
       }
     }
     // no barrier here: the next tile's staging writes only xs/ys, last
@@ -172,42 +199,87 @@ mi_partial_kernel(const float* __restrict__ x, const float* __restrict__ y,
     // next barrier, which every thread reaches only when done here
   }
 
-  float* out = partial + (b * nblk + blockIdx.x) * (int64_t)(B * B + 2 * B);
+  // the groups' sums and the map threads' bin sums, added in a fixed order
+  __syncthreads();  // the maps are read no more
+  const int sx = kThreads / nti * nti, sy = kThreads / ntj * ntj;
+  float* red = reinterpret_cast<float*>(sh4);  // [G][P][16]
+  float* redx = red + G * P * 16;              // [sx / nti][4 nti]
+  float* redy = redx + 4 * sx;                 // [sy / ntj][4 ntj]
+  if (active) {
 #pragma unroll
-  for (int k = 0; k < MAXK; ++k) {
-    const int p = tid + k * kThreads;
-    if (p < Bx * By) out[(x0 + pi[k]) * B + y0 + pj[k]] = acc[k];
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[(g * P + pt) * 16 + a * 4 + c] = acc[a][c];
   }
-  if (sum_x && tid < Bx) out[B * B + x0 + tid] = accx;
-  if (sum_y && tid < By) out[B * B + B + y0 + tid] = accy;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    if (tid < sx) redx[4 * tid + a] = mx[a];
+    if (tid < sy) redy[4 * tid + a] = my[a];
+  }
+  __syncthreads();
+  float* out = partial + (b * nblk + blockIdx.x) * (int64_t)(B * B + 2 * B);
+  for (int e = tid; e < Bx * By; e += kThreads) {
+    const int i = e / By, j = e - i * By;
+    const int o = ((i >> 2) * ntj + (j >> 2)) * 16 + (i & 3) * 4 + (j & 3);
+    float s = 0.f;
+    for (int k = 0; k < G; ++k) s += red[k * P * 16 + o];
+    out[(x0 + i) * B + y0 + j] = s;
+  }
+  if (sum_x) {
+    for (int i = tid; i < Bx; i += kThreads) {
+      float s = 0.f;
+      for (int k = 0; k < sx / nti; ++k) s += redx[k * 4 * nti + i];
+      out[B * B + x0 + i] = s;
+    }
+  }
+  if (sum_y) {
+    for (int j = tid; j < By; j += kThreads) {
+      float s = 0.f;
+      for (int k = 0; k < sy / ntj; ++k) s += redy[k * 4 * ntj + j];
+      out[B * B + B + y0 + j] = s;
+    }
+  }
 }
 
-// grid (ceil(E / 32), bs), 256 threads: warp w sums the partials of blocks
-// [w * nblk / 8, (w + 1) * nblk / 8) for 32 entries, in order; then the
-// first warp adds the eight sums in order. E = B*B + 2B entries, written
-// to pxy [bs, B, B], px [bs, B] and py [bs, B].
-__global__ void __launch_bounds__(256)
+// grid (ceil(E / 32), bs), kFinal threads: warp w sums the partials of
+// blocks [w * nblk / W, (w + 1) * nblk / W) (W = kFinal / 32 warps) for 32
+// entries, in order, with 8 loads in flight; then the first warp adds the W
+// sums in order. E = B*B + 2B entries, written to pxy [bs, B, B], px
+// [bs, B] and py [bs, B].
+constexpr int kFinal = 1024;
+
+__global__ void __launch_bounds__(kFinal)
 mi_final_kernel(const float* __restrict__ partial, float* __restrict__ pxy,
                 float* __restrict__ px, float* __restrict__ py, int B,
                 int nblk) {
-  __shared__ float part[8][32];
+  constexpr int W = kFinal / 32;
+  __shared__ float part[W][33];
   const int E = B * B + 2 * B;
   const int64_t b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int e = blockIdx.x * 32 + lane;
-  const int k0 = (int)((int64_t)w * nblk / 8);
-  const int k1 = (int)((int64_t)(w + 1) * nblk / 8);
+  const int k0 = (int)((int64_t)w * nblk / W);
+  const int k1 = (int)((int64_t)(w + 1) * nblk / W);
   float s = 0.f;
   if (e < E) {
     const float* src = partial + b * nblk * (int64_t)E + e;
-    for (int k = k0; k < k1; ++k) s += src[(int64_t)k * E];
+    int k = k0;
+    for (; k + 8 <= k1; k += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = src[(int64_t)(k + u) * E];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; k < k1; ++k) s += src[(int64_t)k * E];
   }
   part[w][lane] = s;
   __syncthreads();
   if (w == 0 && e < E) {
     float t = 0.f;
-    for (int g = 0; g < 8; ++g) t += part[g][lane];
+    for (int g = 0; g < W; ++g) t += part[g][lane];
     if (e < B * B) {
       pxy[b * B * B + e] = t;
     } else if (e < B * B + B) {
@@ -218,21 +290,6 @@ mi_final_kernel(const float* __restrict__ partial, float* __restrict__ pxy,
   }
 }
 
-template <int MAXK>
-cudaError_t launch_partial(const float* x, const float* y, const float* cx,
-                           const float* cy, float* partial, int64_t bs,
-                           int64_t V, int B, int nblk, float alpha,
-                           const float* alpha_ptr, float lo, float hi,
-                           cudaStream_t s) {
-  const int Bc = B < kChunk ? B : kChunk;
-  const unsigned nc = (unsigned)((B + kChunk - 1) / kChunk);
-  const size_t smem = 2 * (size_t)Bc * kRow * sizeof(float);
-  mi_partial_kernel<MAXK>
-      <<<dim3(nblk, (unsigned)bs, nc * nc), kThreads, smem, s>>>(
-          x, y, cx, cy, partial, V, B, nblk, alpha, alpha_ptr, lo, hi);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -241,37 +298,29 @@ extern "C" {
 // partial: [bs, nblk, B*B + 2B] scratch; pxy: [bs, B, B]; px, py: [bs, B].
 // alpha is the RBF sharpness, read from alpha_ptr (one float32 on the
 // device) when that is not null; lo and hi are the clip bounds (+-inf: no
-// clip). The caller keeps ceil(B / 64)^2 <= 65535 (the grid's third axis).
+// clip); tile (voxels a tile, at most 256) and smem (the first launch's
+// dynamic shared bytes) come from `mi_hist_cuda.plan`. The caller keeps
+// ceil(B / 64)^2 <= 65535 (the grid's third axis).
 int neurite_mi_hist_f32(const void* x, const void* y, const void* cx,
                         const void* cy, void* partial, void* pxy, void* px,
                         void* py, int64_t bs, int64_t V, int B, int nblk,
                         float alpha, const void* alpha_ptr, float lo, float hi,
-                        void* stream) {
+                        int tile, int smem, void* stream) {
   if (bs == 0) return 0;
   const int64_t nc = (B + kChunk - 1) / kChunk;
-  if (B < 1 || nc * nc > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1 || nc * nc > 65535 || tile < 1 || tile > kTileMax)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const float *xf = static_cast<const float*>(x),
-              *yf = static_cast<const float*>(y),
-              *cxf = static_cast<const float*>(cx),
-              *cyf = static_cast<const float*>(cy),
-              *af = static_cast<const float*>(alpha_ptr);
   float* pf = static_cast<float*>(partial);
-  const int Bc = B < kChunk ? B : kChunk;
-  cudaError_t err;
-  if (Bc * Bc <= kThreads) {
-    err = launch_partial<1>(xf, yf, cxf, cyf, pf, bs, V, B, nblk, alpha, af,
-                            lo, hi, s);
-  } else if (Bc * Bc <= 4 * kThreads) {
-    err = launch_partial<4>(xf, yf, cxf, cyf, pf, bs, V, B, nblk, alpha, af,
-                            lo, hi, s);
-  } else {
-    err = launch_partial<16>(xf, yf, cxf, cyf, pf, bs, V, B, nblk, alpha, af,
-                             lo, hi, s);
-  }
+  mi_partial_kernel<<<dim3(nblk, (unsigned)bs, (unsigned)(nc * nc)), kThreads,
+                      smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(cx), static_cast<const float*>(cy), pf, V, B,
+      nblk, alpha, static_cast<const float*>(alpha_ptr), lo, hi, tile);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int E = B * B + 2 * B;
-  mi_final_kernel<<<dim3((E + 31) / 32, (unsigned)bs), 256, 0, s>>>(
+  mi_final_kernel<<<dim3((E + 31) / 32, (unsigned)bs), kFinal, 0, s>>>(
       pf, static_cast<float*>(pxy), static_cast<float*>(px),
       static_cast<float*>(py), B, nblk);
   return (int)cudaGetLastError();

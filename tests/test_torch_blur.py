@@ -184,11 +184,65 @@ def test_kernel_wrapper_checks_its_input():
     x = torch.zeros(1, 4, 4, 4)
     with pytest.raises(ValueError, match='CUDA'):
         blur_cuda.blur_axis(x, torch.ones(3), 1)
-    assert blur_cuda._tile(128, 16384, 165) == (64, 32)
-    assert blur_cuda._tile(128, 1, 165) == (128, 1)
-    tl, tq = blur_cuda._tile(128, 16384, 2001)
-    assert 4 * ((tl + 2000) * tq + 2001) <= 48 * 1024
+    assert blur_cuda.plan((1, 128, 128, 128), 1, 165) == (
+        'whole', 128, 165, 4 * (168 + 8 + 2 * 128 * 33))
+    assert blur_cuda.plan((1, 128, 128, 128), 3, 165).body == 'whole'
+    p = blur_cuda.plan((1, 512, 8, 8), 1, 6143)
+    assert p.body == 'halo' and p.chunk < 6143 and p.smem <= 48 * 1024
     assert _build.launches['blur'] == 0
+    assert _build.launches['blur_whole'] == 0
+
+
+# the config #5 synthesis's blurs: the two Perlin SVF blurs, the bias field
+# and the image blur
+CONFIG5_BLURS = [((3, 64, 64, 64), 41), ((1, 128, 128, 128), 165),
+                 ((1, 128, 128, 128), 7)]
+
+
+@pytest.mark.parametrize('axis', [1, 2, 3])
+@pytest.mark.parametrize('shape,width', CONFIG5_BLURS)
+def test_plan_gives_config5_the_whole_axis_body(shape, width, axis):
+    """Every launch of the path stages its columns over the whole axis
+    with every tap, in one tile and one chunk, within 48 KB."""
+    p = blur_cuda.plan(shape, axis, width)
+    assert p.body == 'whole'
+    assert (p.tile, p.chunk) == (shape[axis], width)
+    assert p.smem <= blur_cuda.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('shape,axis,width,chunked', [
+    ((1, 4096, 4, 4), 1, 165, False),     # a long axis
+    ((1, 4, 4, 8192), 3, 41, False),
+    ((1, 400, 2, 2), 1, 6143, True),      # the earlier widest, in chunks
+    ((1, 2, 2, 100000), 3, 6143, True),
+    ((1, 300, 8, 40), 1, 20001, True),
+])
+def test_plan_falls_back_to_halo_tiles(shape, axis, width, chunked):
+    """Past 48 KB a block takes 64-row tiles with their halo, and, where
+    the taps do not fit beside their rows, chunks of taps (a multiple of 4
+    for the float4 tap loads); any width plans, within the launch's
+    shared bytes."""
+    p = blur_cuda.plan(shape, axis, width)
+    assert p.body == 'halo' and p.tile == blur_cuda.HALO_TILE
+    assert p.smem <= blur_cuda.SMEM_LIMIT
+    assert p.smem == blur_cuda._smem(shape[axis], p.tile, p.chunk)
+    assert (p.chunk < width) == chunked
+    if chunked:
+        assert p.chunk % 4 == 0 and p.chunk >= 64
+    else:
+        assert p.chunk == width
+
+
+def test_plan_takes_every_width_up_to_6144_taps():
+    """Every odd width that the earlier kernel took (to 6143 taps) plans
+    on short, long and last axes, within the shared bytes the launcher
+    sets."""
+    for shape, axis in (((1, 20, 3, 5), 1), ((1, 128, 128, 128), 2),
+                        ((1, 4, 4, 5000), 3)):
+        for width in range(1, 6144, 34):
+            p = blur_cuda.plan(shape, axis, width)
+            assert p.smem <= blur_cuda.SMEM_LIMIT
+            assert p.chunk == width or p.chunk % 4 == 0
 
 
 @pytest.fixture
@@ -196,6 +250,36 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,axis,width', [
+    ((2, 21, 5, 6), 1, 7),        # L not a multiple of 8, post 30
+    ((3, 7, 5, 29), 3, 41),       # post 1, pre 105 not a multiple of 32
+    ((2, 6, 5, 11), 2, 1),        # one tap
+    ((1, 20, 9, 40), 1, 165),     # 165 taps on a 20-voxel axis
+    ((1, 1000, 3, 3), 1, 165),    # halo tiles
+    ((1, 3, 2, 500), 3, 2001),    # halo tiles, taps in chunks
+])
+def test_kernel_pass_matches_plain_on_card(cuda, shape, axis, width):
+    """One K6 pass at ragged shapes, by the body `plan` names."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(12)
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda)
+        k = torch.from_numpy(_taps(13, [width])[0]).to(cuda)
+        before = _build.launches['blur_whole']
+        got = blur_cuda.blur_axis(x, k, axis)
+        want = nt.utils.core.conv_axis(x, k, axis - 1)
+        torch.cuda.synchronize()
+        whole = blur_cuda.plan(shape, axis, width).body == 'whole'
+        assert _build.launches['blur_whole'] == before + whole
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 @pytest.mark.cuda

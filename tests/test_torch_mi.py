@@ -113,6 +113,9 @@ HIST_SHAPES = {   # (bs, V, B, alpha, clip, input range), as
     '1x700_B8_clip': (1, 700, 8, 40., (0., 1.), (-1., 2.)),
     # past one 64-bin chunk of K10: the reference takes any number of bins
     '1x300_B65': (1, 300, 65, 1000., (-np.inf, np.inf), (0., 1.)),
+    # bins that K10's 4 x 4 pair tiles do not divide
+    '1x500_B5': (1, 500, 5, 12., (-np.inf, np.inf), (0., 1.)),
+    '2x400_B17': (2, 400, 17, 160., (-np.inf, np.inf), (0., 1.)),
 }
 
 
@@ -200,7 +203,7 @@ def test_mi_histograms_routes_and_errors():
     with pytest.raises(ValueError, match='CUDA'):
         mi_hist_cuda.mi_histograms_cuda(xt, yt, _t(cx), _t(cx), alpha)
     assert mi_hist_cuda._launch_blocks(0, 16, 1) == 1
-    assert mi_hist_cuda._launch_blocks(1000, 16, 1) == 16
+    assert mi_hist_cuda._launch_blocks(1000, 16, 1) == 4   # 256-voxel tiles
     assert mi_hist_cuda._launch_blocks(128 ** 3, 16,
                                        1) == mi_hist_cuda.MAX_BLOCKS
 
@@ -218,6 +221,25 @@ def test_mi_kernel_scratch_stays_bounded(bs):
         if nb <= 64:
             assert nblk == mi_hist_cuda.MAX_BLOCKS
     assert lb(n_vox, mi_hist_cuda.MAX_BINS, bs) == 1
+
+
+@pytest.mark.parametrize('nb_bins,tile,groups', [
+    (1, 256, 256), (5, 256, 64), (16, 256, 16), (17, 128, 10), (64, 64, 1),
+    (65, 64, 1), (1024, 64, 1), (16320, 64, 1)])
+def test_mi_kernel_plan(nb_bins, tile, groups):
+    """K10's plan at every number of bins: its voxel tile (the most whose
+    maps fit 32 KB), its voxel groups (256 threads over the 4 x 4 pair
+    tiles, at most one a voxel of the tile), shared bytes within 48 KB for
+    every pair of chunks and the scratch within SCRATCH_ENTRIES."""
+    p = mi_hist_cuda.plan(nb_bins)
+    assert (p.tile, p.groups) == (tile, groups)
+    assert p.smem <= 48 * 1024
+    for bx in mi_hist_cuda._chunk_sizes(nb_bins):
+        for by in mi_hist_cuda._chunk_sizes(nb_bins):
+            assert 4 * mi_hist_cuda._block_layout(bx, by, tile)[1] <= p.smem
+    nblk = mi_hist_cuda._launch_blocks(128 ** 3, nb_bins, 1)
+    assert nblk * nb_bins * (nb_bins + 2) <= max(
+        mi_hist_cuda.SCRATCH_ENTRIES, nb_bins * (nb_bins + 2))
 
 
 def test_mi_histograms_nan_reaches_the_sums_as_in_jax():
@@ -440,6 +462,7 @@ def test_mi_kernel_matches_plain_on_card(cuda, case):
     p = mi_hist._mi_histograms_plain(xt, yt, ct, dt, alpha, lo, hi)
     torch.cuda.synchronize()
     assert _build.launches['mi_hist'] == 2
+    assert _build.launches['mi_hist_tiled'] == 2
     for a, b, a2 in zip(k, p, k2):
         # 1e-5 of the largest magnitude: another summation order
         torch.testing.assert_close(a, b, rtol=0,
