@@ -16,18 +16,28 @@ launch counts set to 0 just before it and read just after. Phases (phase
 
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds the kernels (`neurite_tpu_torch/ops/csrc`);
-  3. pool: K1/K2 vs the plain pool at the step's three pool shapes, float32
-     and bfloat16, on half-quantized inputs (ties) with a NaN window: forward
-     and dx must be bit-equal (NaN positions equal, every other bit equal);
-  4. Dice: K3 vs the plain sums at (1, 128^3, 4), rtol 1e-5 (another
-     summation order);
+  3. pool: K1/K2 vs the plain pool at the flagship's three pool shapes,
+     config #3's two ([1, 160^3, 8], [1, 80^3, 16]), C = 7 and misaligned
+     views of the flagship's shapes, float32 and bfloat16, on
+     half-quantized inputs (ties) with a NaN window: forward and dx must be
+     bit-equal (NaN positions equal, every other bit equal), each K1 check
+     naming the body `pool_cuda.plan` picks ('vec' at the path shapes,
+     counted in `pool2_fwd_vec`; 'scalar' at C = 7 and on the views), each
+     K1 time beside its own bound and whether its bytes stay in L2 when
+     timed back to back;
+  4. Dice: K3 vs the plain sums at the flagship's (1, 128^3, 4), config
+     #5's (1, 128^3, 16), (2, 1000, 3), (3, 17, 299), (3, 17, 300) and a
+     misaligned view of (1, 128^3, 4): each within rtol 1e-5 (another
+     summation order), two calls bit-equal, by the body `dice_red.plan`
+     picks ('vec', one device launch a call, counted in `dice_sums_vec`;
+     'scalar', two), each time beside its bound and by kernel name;
   5. one float32 step through the kernels and one through the plain versions
      from the same weights (TF32 off, deterministic cuDNN): losses within
      rtol 1e-5, each gradient within 1e-4 of its largest magnitude (the Dice
      sums' order is the only difference);
   6. 10 bfloat16 training steps: finite losses, launch counts of K1, K2 and
-     K3 exactly those of 10 steps, median step time, vol/s, peak memory; a
-     profile of 3 more steps;
+     K3 exactly those of 10 steps, every K1 and K3 launch by its 'vec' body,
+     median step time, vol/s, peak memory; a profile of 3 more steps;
   7. interpolation: K4 vs the plain gather chain at the synthesis path's
      shapes ([1, 64^3, 3] linear under a smooth +-8 voxel field and under
      the same field shifted by 20 voxels; [1, 128^3, 1] nearest with fill 0
@@ -47,7 +57,8 @@ launch counts set to 0 just before it and read just after. Phases (phase
      range(16), out_shape=(128,)*3, one_hot=True)` feeding the bf16 UNet
      (nb_labels=16) for 10 steps of synthesis then train step; finite
      losses, one-hot maps, launch counts of K1-K4 and K6 exactly those of 10
-     steps (each K6 launch by the 'whole' body); synthesis ms, step ms,
+     steps (each K6 launch by the 'whole' body, each K1 and K3 launch by
+     its 'vec' body); synthesis ms, step ms,
      vol/s, peak memory; no host sync in the synthesis (CUDA's sync debug
      mode); the synthesis through the kernels against the plain CPU path on
      the same raw draws at 64^3 (every K4 and K6 call of the path: the
@@ -81,7 +92,8 @@ launch counts set to 0 just before it and read just after. Phases (phase
      [1, 108, 160^3]), MSE, Adam 1e-4, 160^3, 10 steps: finite losses,
      launch counts of K1, K2 and K7-K9 exactly those of 10 steps, each of
      K7-K9 by its row body every step (`lc_fwd_row`, `lc_dk_row`,
-     `lc_dx_row`), median step ms, vol/s, peak memory; a profile of 3
+     `lc_dx_row`) and each K1 launch by its 'vec' body (`pool2_fwd_vec`),
+     median step ms, vol/s, peak memory; a profile of 3
      steps;
  13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
      16 bins and centers from the data, at [2, 1000], [1, 128^3 + 37], 8
@@ -148,6 +160,8 @@ from neurite_tpu_torch.utils import core, spatial
 VOL = 128
 NB_LABELS = 4
 POOL_SHAPES = [(1, 128, 128, 128, 16), (1, 64, 64, 64, 32), (1, 32, 32, 32, 64)]
+LC_POOL_SHAPES = [(1, 160, 160, 160, 8), (1, 80, 80, 80, 16)]   # config #3
+L2_BYTES = 50e6     # the H100's L2: a call that moves less stays there
 TRAIN_STEPS = 10
 WARMUP_STEPS = 3
 SYNTH_LABELS = 16
@@ -221,9 +235,11 @@ def device_events(prof):
     return rows
 
 
-def time_by_name(fn, reps=20, warmup=3):
-    """{device event name: ms of one fn() call}: the durations torch.profiler
-    records over `reps` calls, summed by name, over reps."""
+def events_by_name(fn, reps=20, warmup=3):
+    """{device event name: (ms, events) of one fn() call}: the durations
+    and the count of the events torch.profiler records over `reps` calls,
+    summed by name, over reps; the count is None where the profiler
+    recorded nothing."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -235,7 +251,7 @@ def time_by_name(fn, reps=20, warmup=3):
             torch.cuda.synchronize()
         rows = device_events(prof)
         if rows:
-            return {name: ms / reps for ms, _, name in rows}
+            return {name: (ms / reps, n / reps) for ms, n, name in rows}
     # none in three tries: CUDA events around the reps (the host's launch
     # time between the calls is then in it)
     print('  (the profiler recorded no event in three tries: the next time '
@@ -247,7 +263,12 @@ def time_by_name(fn, reps=20, warmup=3):
     b.record()
     b.synchronize()
     return {'all launches (CUDA events; no profiler events)':
-            a.elapsed_time(b) / reps}
+            (a.elapsed_time(b) / reps, None)}
+
+
+def time_by_name(fn, reps=20, warmup=3):
+    """{device event name: ms of one fn() call} (see events_by_name)."""
+    return {k: ms for k, (ms, _) in events_by_name(fn, reps, warmup).items()}
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -370,34 +391,79 @@ def phase_build():
     return lib.build_seconds
 
 
+def misaligned(x):
+    """x copied into a contiguous view whose data pointer is one element
+    past a 16-byte boundary: the kernels' scalar bodies take it."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    v = buf[1:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+def pool_input(shape, dtype, gen):
+    """Halves (many tied maxima; +0.0 turns -0.0 into +0.0 so that
+    "bit-equal" does not hinge on which signed zero a max returns) with a
+    NaN in the window (0, 1, 1, 2) of channel 1, and a cotangent."""
+    x = torch.round(torch.randn(shape, generator=gen, device='cuda')
+                    * 2) / 2 + 0.
+    x[0, 2, 3, 4, 1] = float('nan')
+    out = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2, shape[4])
+    g = torch.randn(out, generator=gen, device='cuda').to(dtype)
+    return x.to(dtype).contiguous(), g
+
+
 def phase_pool(checks, res):
     print('== 3. pool K1/K2 vs plain', flush=True)
     w = (2, 2, 2)
     gen = torch.Generator(device='cuda').manual_seed(3)
+    # (shape, layout, the K1 body it must take, its role): the flagship's
+    # and config #5's three levels, config #3's two, then the scalar body at
+    # C = 7 and on misaligned views of the flagship's levels (K1's earlier
+    # body, timed beside the vec body in this call)
+    cases = ([(s, 'contiguous', 'vec', 'flagship') for s in POOL_SHAPES]
+             + [(s, 'contiguous', 'vec', 'config #3') for s in LC_POOL_SHAPES]
+             + [((1, 32, 32, 32, 7), 'contiguous', 'scalar', 'C = 7')]
+             + [(s, 'misaligned', 'scalar', 'flagship, misaligned')
+                for s in POOL_SHAPES])
+    k1_steps = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in POOL_SHAPES:
-            # halves: many tied maxima; +0.0 turns -0.0 into +0.0 so that
-            # "bit-equal" does not hinge on which signed zero a max returns
-            x = torch.round(torch.randn(shape, generator=gen, device='cuda')
-                            * 2) / 2 + 0.
-            x[0, 2, 3, 4, 1] = float('nan')
-            x = x.to(dtype).contiguous()
-            out = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2,
-                   shape[4])
-            g = torch.randn(out, generator=gen, device='cuda').to(dtype)
+        for shape, layout, want, role in cases:
+            x, g = pool_input(shape, dtype, gen)
+            if layout == 'misaligned':
+                x = misaligned(x)
+            _build.launches.clear()
             yk = pool_cuda.pool2_fwd(x)
+            vec_launches = _build.launches['pool2_fwd_vec']
+            body = pool_cuda.plan(x.shape, x.dtype,
+                                  (x.data_ptr(), yk.data_ptr())).body
             yp = pool._max_pool_tiled_fwd(x, w)
             dk = pool_cuda.pool2_bwd(x, g)
             dp = pool._max_pool_tiled_bwd(x, yp, g, w)
             torch.cuda.synchronize()
-            tag = f'{str(dtype)[6:]} {shape}'
+            tag = f'{str(dtype)[6:]} {shape} {layout}'
             nan_win = bool(torch.isnan(yk[0, 1, 1, 2, 1]))
-            checks.check(f'pool fwd {tag}', bit_equal(yk, yp)
-                         and nan_win, f'nan window kept: {nan_win}')
+            checks.check(f'pool fwd {tag}', bit_equal(yk, yp) and nan_win
+                         and body == want and vec_launches == (body == 'vec'),
+                         f'body {body!r} (expected {want!r}, counted '
+                         f'pool2_fwd_vec {vec_launches}); nan window kept: '
+                         f'{nan_win}')
             n_g = int((dk[0, 2:4, 2:4, 4:6, 1] == g[0, 1, 1, 2, 1]).sum())
             checks.check(f'pool bwd {tag}', bit_equal(dk, dp)
                          and n_g == 8, f'nan window taps given g: {n_g}/8')
-            t = {'pool2_fwd': (time_ms(lambda: pool_cuda.pool2_fwd(x)),
+            n, isz = x.numel(), x.element_size()
+            nbytes = {'pool2_fwd': (n + n // 8) * isz,
+                      'pool2_bwd': (2 * n + n // 8) * isz}
+            k1_ms = time_ms(lambda: pool_cuda.pool2_fwd(x))
+            resident = 'yes' if nbytes['pool2_fwd'] < L2_BYTES else 'no'
+            print(f'  pool2_fwd {tag}: {body} body {k1_ms:.4f} ms, bound '
+                  f'{bound_ms(nbytes["pool2_fwd"])[0]:.4f} ms (bytes '
+                  f'{nbytes["pool2_fwd"]}; L2-resident back to back: '
+                  f'{resident})', flush=True)
+            if dtype == torch.bfloat16 and role.startswith('flagship'):
+                k1_steps[role] = k1_steps.get(role, 0.) + k1_ms
+            if role != 'flagship':
+                continue
+            t = {'pool2_fwd': (k1_ms,
                                time_ms(lambda: pool._max_pool_tiled_fwd(x, w))),
                  'pool2_bwd': (time_ms(lambda: pool_cuda.pool2_bwd(x, g)),
                                time_ms(lambda: pool._max_pool_tiled_bwd(
@@ -413,9 +479,6 @@ def phase_pool(checks, res):
                            False, idx))}
             calls = {'pool2_fwd': call_ms(lambda: pool_cuda.pool2_fwd(x)),
                      'pool2_bwd': call_ms(lambda: pool_cuda.pool2_bwd(x, g))}
-            n, isz = x.numel(), x.element_size()
-            nbytes = {'pool2_fwd': (n + n // 8) * isz,
-                      'pool2_bwd': (2 * n + n // 8) * isz}
             for name, (k_ms, p_ms) in t.items():
                 err = max_abs_err(yk, yp) if name == 'pool2_fwd' \
                     else max_abs_err(dk, dp)
@@ -430,33 +493,75 @@ def phase_pool(checks, res):
                       f'{p_ms:.4f} ms, library {lib[name]:.4f} ms, bound '
                       f'{bound_ms(nbytes[name])[0]:.4f} ms; one kernel call '
                       f'{calls[name]:.4f} ms', flush=True)
+    print('  K1 over the flagship\'s three bf16 levels: '
+          + ', '.join(f'{role} {ms:.4f} ms' for role, ms in k1_steps.items())
+          + ' (the misaligned views take the scalar body)', flush=True)
 
 
 def phase_dice(checks, res):
     print('== 4. Dice sums K3 vs plain', flush=True)
     gen = torch.Generator(device='cuda').manual_seed(4)
-    shape = (1, VOL ** 3, NB_LABELS)
-    x = torch.softmax(torch.randn(shape, generator=gen, device='cuda'), -1)
-    lab = torch.randint(0, NB_LABELS, shape[:2], generator=gen, device='cuda')
-    y = torch.nn.functional.one_hot(lab, NB_LABELS).float()
-    k = dice_red.dice_sums_cuda(x, y)
-    p = dice_red._dice_sums_plain(x, y)
-    torch.cuda.synchronize()
-    ok = all(torch.allclose(a, b, rtol=1e-5, atol=0.) for a, b in zip(k, p))
-    err = max(max_abs_err(a, b) for a, b in zip(k, p))
-    rel = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(k, p))
-    checks.check(f'dice sums {shape}', ok, f'max abs err {err:.6g}, '
-                 f'max rel err {rel:.3g} (rtol 1e-5)')
-    k_ms = time_ms(lambda: dice_red.dice_sums_cuda(x, y))
-    p_ms = time_ms(lambda: dice_red._dice_sums_plain(x, y))
-    res['dice_sums'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                            library_ms=None)
-    # x and y read once, three [1, L] sums written; a multiply-add per sum
-    add_bound(res['dice_sums'], (2 * x.numel() + 3 * NB_LABELS) * 4,
-              6 * x.numel())
-    c_ms = call_ms(lambda: dice_red.dice_sums_cuda(x, y))
-    print(f'  dice_sums {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; '
-          f'one kernel call {c_ms:.4f} ms', flush=True)
+    # (shape, layout, the K3 body it must take): the flagship's L = 4 (the
+    # path), config #5's L = 16, L = 3 and 299 (scalar), 300 (vec: a
+    # multiple of 4), and the flagship's shape on misaligned views (the
+    # earlier two-launch body, each launch timed by name)
+    cases = [((1, VOL ** 3, NB_LABELS), 'contiguous', 'vec'),
+             ((1, VOL ** 3, SYNTH_LABELS), 'contiguous', 'vec'),
+             ((2, 1000, 3), 'contiguous', 'scalar'),
+             ((3, 17, 299), 'contiguous', 'scalar'),
+             ((3, 17, 300), 'contiguous', 'vec'),
+             ((1, VOL ** 3, NB_LABELS), 'misaligned', 'scalar')]
+    for shape, layout, want in cases:
+        x = torch.softmax(torch.randn(shape, generator=gen, device='cuda'), -1)
+        lab = torch.randint(0, shape[2], shape[:2], generator=gen,
+                            device='cuda')
+        y = torch.nn.functional.one_hot(lab, shape[2]).float()
+        if layout == 'misaligned':
+            x, y = misaligned(x), misaligned(y)
+        body = dice_red.plan(*shape, (x.data_ptr(), y.data_ptr())).body
+        _build.launches.clear()
+        k = dice_red.dice_sums_cuda(x, y)
+        vec_launches = _build.launches['dice_sums_vec']
+        again = dice_red.dice_sums_cuda(x, y)
+        p = dice_red._dice_sums_plain(x, y)
+        torch.cuda.synchronize()
+        tag = f'{shape} {layout}'
+        ok = all(torch.allclose(a, b, rtol=1e-5, atol=0.) for a, b in zip(k, p))
+        err = max(max_abs_err(a, b) for a, b in zip(k, p))
+        rel = max(rel_err(a, b) for a, b in zip(k, p))
+        same = all(torch.equal(a, b) for a, b in zip(k, again))
+        checks.check(f'dice sums {tag}', ok and same and body == want
+                     and vec_launches == (body == 'vec'),
+                     f'body {body!r} (expected {want!r}, counted '
+                     f'dice_sums_vec {vec_launches}); max abs err {err:.6g}, '
+                     f'over the largest sum {rel:.3g} (each sum within rtol '
+                     f'1e-5); two calls bit-equal: {same}')
+        events = events_by_name(lambda: dice_red.dice_sums_cuda(x, y))
+        counts = [n for _, n in events.values()]
+        per_call = None if None in counts else sum(counts)
+        if body == 'vec':
+            # a count the profiler did not record is reported, not failed
+            checks.check(f'dice sums {tag} device launches a call',
+                         per_call in (1, None),
+                         'not measured (no profiler events)'
+                         if per_call is None else f'{per_call:g} (1)')
+        k_ms = sum(ms for ms, _ in events.values())
+        nbytes = (2 * x.numel() + 3 * shape[0] * shape[2]) * 4
+        bound = bound_ms(nbytes, 6 * x.numel())[0]
+        print(f'  dice_sums {tag}: {body} body {k_ms:.4f} ms, bound '
+              f'{bound:.4f} ms, device launches a call {per_call}; by name: '
+              + ', '.join(f'{name[:40]} {ms:.4f} ms'
+                          for name, (ms, _) in events.items()), flush=True)
+        if shape != (1, VOL ** 3, NB_LABELS) or layout != 'contiguous':
+            continue
+        p_ms = time_ms(lambda: dice_red._dice_sums_plain(x, y))
+        res['dice_sums'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                library_ms=None)
+        # x and y read once, three [1, L] sums written; a multiply-add a sum
+        add_bound(res['dice_sums'], nbytes, 6 * x.numel())
+        c_ms = call_ms(lambda: dice_red.dice_sums_cuda(x, y))
+        print(f'  dice_sums {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} '
+              f'ms; one kernel call {c_ms:.4f} ms', flush=True)
 
 
 def flagship_inputs():
@@ -553,6 +658,7 @@ def phase_train(checks, res, x, y):
         checks.check(f'launches {name}', got == n and got > 0,
                      f'{got} (expected {n})')
         res[name]['launches'] = got
+    check_vec_bodies(checks, 'flagship', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
           f'{step_ms:.3f}; all: '
@@ -564,6 +670,16 @@ def phase_train(checks, res, x, y):
                        lambda i: step(state, (x, y), gen), TRAIN_STEPS)
     except Exception as e:  # noqa: BLE001  (a reading, not a check)
         print(f'  flagship profile not measured: {type(e).__name__}: {e}')
+
+
+def check_vec_bodies(checks, path, counts):
+    """Every K1 and K3 launch of a path's run by its 'vec' body."""
+    for name in ('pool2_fwd', 'dice_sums'):
+        if name in counts:
+            got = counts.get(f'{name}_vec', 0)
+            checks.check(f'{path} launches {name}_vec', got == counts[name],
+                         f'{got} (expected {counts[name]}, every {name} '
+                         f'launch)')
 
 
 def smooth_field(shape, amp, gen):
@@ -934,6 +1050,7 @@ def phase_synth_train(checks, res):
                      f'{got} (expected {n} per step)')
         if name in ('interpn', 'blur'):
             res[name]['launches'] = got
+    check_vec_bodies(checks, 'config #5', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     s_ms = statistics.median(synth_ms[WARMUP_STEPS:])
     print(f'  synthesis ms (CUDA events, median of steps {WARMUP_STEPS + 1}-'
@@ -1302,6 +1419,7 @@ def phase_lc_train(checks, res):
                      f'{got} (expected {n} per step)')
         if name in ('lc_fwd', 'lc_dk', 'lc_dx'):
             res[name]['launches'] = got
+    check_vec_bodies(checks, 'config #3', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
           f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))

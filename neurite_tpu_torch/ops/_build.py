@@ -36,13 +36,17 @@ launches = collections.Counter()
 _vp, _i64, _int, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_POOL_VEC = [_vp, _vp] + [_i64] * 5 + [_int] * 5 + [_vp]
 _SIGNATURES = {
     'neurite_pool2_fwd_f32': [_vp, _vp] + [_i64] * 5 + [_vp],
     'neurite_pool2_fwd_bf16': [_vp, _vp] + [_i64] * 5 + [_vp],
+    'neurite_pool2_fwd_vec_f32': _POOL_VEC,
+    'neurite_pool2_fwd_vec_bf16': _POOL_VEC,
     'neurite_pool2_bwd_f32': [_vp, _vp, _vp] + [_i64] * 5 + [_vp],
     'neurite_pool2_bwd_bf16': [_vp, _vp, _vp] + [_i64] * 5 + [_vp],
     'neurite_dice_sums_f32': [_vp, _vp, _vp, _vp, _i64, _i64, _int, _int,
                               _int, _vp],
+    'neurite_dice_sums_vec_f32': [_vp] * 5 + [_i64, _i64] + [_int] * 4 + [_vp],
     'neurite_interpn3d_f32': [_vp, _vp, _vp] + [_i64] * 6 + [_int, _int, _f32,
                                                              _vp],
     'neurite_blur_axis_f32': [_vp] * 3 + [_i64] * 3 + [_int] * 4 + [_vp],

@@ -5,7 +5,17 @@ of `csrc/pool.cu` (forward K1, first-max backward K2).
 Counterpart of `neurite_tpu/ops/pool_pallas.py`. The CUDA kernels take any
 C and any even D, H, W, in float32 or bfloat16; a tensor on the CPU takes the
 plain version (`ops.pool._max_pool_tiled`), which has the same semantics.
+
+`plan` picks K1's body, its block and its grid, and the launcher trusts it:
+'vec' (one 16-byte channel vector a thread, where C is a multiple of 8
+bfloat16 or 4 float32 channels and x and y are 16-byte aligned) or 'scalar'
+(one element a thread). Every K1 launch adds one to
+`_build.launches['pool2_fwd']`, and a launch of the 'vec' body one to
+`_build.launches['pool2_fwd_vec']` too.
 """
+
+import collections
+import functools
 
 import torch
 
@@ -13,6 +23,10 @@ from neurite_tpu_torch.ops import _build
 from neurite_tpu_torch.ops.pool import _max_pool_tiled
 
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
+THREADS = 256       # threads of a 'vec' block
+MAX_GRID_Y = 65535  # rows past this many blocks: a grid-stride loop
+
+Plan = collections.namedtuple('Plan', 'body block grid wide')
 
 
 def supported(x_shape, window, dtype):
@@ -33,17 +47,53 @@ def _check(x, name):
         raise ValueError(f'{name} must be contiguous')
 
 
+def plan(shape, dtype, ptrs):
+    """K1's Plan(body, block, grid, wide) for x of `shape` [B, D, H, W, C]
+    and `dtype`, with `ptrs` the data pointers of x and y. 'vec' where C is
+    a multiple of the 16-byte vector's lanes (8 bfloat16, 4 float32) and
+    every pointer is 16-byte aligned: block (tx, ty) with tx the row's
+    vectors (W/2 * C/lanes, at most THREADS) and ty rows a block, grid
+    (row's vectors / tx, rows / ty) with at most MAX_GRID_Y row blocks (a
+    grid-stride loop walks the rest), and `wide` (64-bit offsets) where an
+    offset of x does not fit 31 bits. 'scalar' otherwise, block and grid
+    None: its launcher sizes them."""
+    return _plan(tuple(shape), dtype, all(p % 16 == 0 for p in ptrs))
+
+
+@functools.cache
+def _plan(shape, dtype, aligned):
+    b, d, h, w, c = shape
+    lanes = 16 // dtype.itemsize
+    if c % lanes or not aligned:
+        return Plan('scalar', None, None, None)
+    per_row = w // 2 * (c // lanes)
+    rows = b * (d // 2) * (h // 2)
+    tx = max(1, min(per_row, THREADS))
+    ty = max(1, THREADS // tx)
+    grid = (max(1, -(-per_row // tx)), max(1, min(-(-rows // ty), MAX_GRID_Y)))
+    return Plan('vec', (tx, ty), grid, b * d * h * w * c >= 2 ** 31)
+
+
 def pool2_fwd(x):
     """K1: y = max over each 2x2x2 window of x (NaN propagates)."""
     _check(x, 'x')
     b, d, h, w, c = x.shape
     y = torch.empty((b, d // 2, h // 2, w // 2, c), dtype=x.dtype,
                     device=x.device)
+    p = plan(x.shape, x.dtype, (x.data_ptr(), y.data_ptr()))
+    sfx = _SUFFIX[x.dtype]
     lib = _build.library()
     with torch.cuda.device(x.device):
-        lib.call(f'neurite_pool2_fwd_{_SUFFIX[x.dtype]}', x.data_ptr(),
-                 y.data_ptr(), b, d, h, w, c, _build.stream_of(x))
+        if p.body == 'vec':
+            lib.call(f'neurite_pool2_fwd_vec_{sfx}', x.data_ptr(),
+                     y.data_ptr(), b, d, h, w, c, *p.block, *p.grid,
+                     int(p.wide), _build.stream_of(x))
+        else:
+            lib.call(f'neurite_pool2_fwd_{sfx}', x.data_ptr(), y.data_ptr(),
+                     b, d, h, w, c, _build.stream_of(x))
     _build.launches['pool2_fwd'] += 1
+    if p.body == 'vec':
+        _build.launches['pool2_fwd_vec'] += 1
     return y
 
 

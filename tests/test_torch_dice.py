@@ -13,7 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 import neurite_tpu as ne  # noqa: E402
 from neurite_tpu import ops as jops  # noqa: E402
 import neurite_tpu_torch as nt  # noqa: E402
-from neurite_tpu_torch.ops import dice_red  # noqa: E402
+from neurite_tpu_torch.ops import _build, dice_red  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -150,6 +150,45 @@ def test_check_limits():
         nt.metrics.Dice(dice_type='soft', input_type='max_label')
 
 
+@pytest.mark.parametrize('shape,ptrs,want', [
+    # the flagship's L = 4 and config #5's L = 16 at 128^3
+    ((1, 128 ** 3, 4), (0, 512), ('vec', 512, 264, 170)),
+    ((1, 128 ** 3, 16), (0, 512), ('vec', 512, 264, 42)),
+    # few voxels: as many blocks as give each thread 4 float4s
+    ((1, 4096, 4), (0, 512), ('vec', 512, 2, 2)),
+    ((2, 100000, 8), (0, 512), ('vec', 512, 98, 42)),
+    ((2, 1000, 8), (0, 512), ('vec', 512, 1, 1)),
+    # L / 4 does not divide 512: whole label groups a block
+    ((3, 50, 12), (16, 32), ('vec', 510, 1, 1)),
+    ((3, 17, 300), (0, 512), ('vec', 450, 1, 1)),
+    # more float4 columns of partials than threads: passes of 512
+    ((1, 10, 1024), (16, 32), ('vec', 512, 2, 1)),
+    # many rows: fewer blocks a row
+    ((1000, 4096, 4), (0, 512), ('vec', 512, 1, 1)),
+    # L not a multiple of 4, a pointer off 16 bytes, 2^31 elements a row
+    ((2, 1000, 3), (0, 512), ('scalar',) + dice_red._launch_shape(1000, 3)),
+    ((3, 17, 299), (0, 512), ('scalar',) + dice_red._launch_shape(17, 299)),
+    ((1, 4096, 4), (4, 512), ('scalar',) + dice_red._launch_shape(4096, 4)),
+    ((1, 2 ** 29, 4), (0, 512),
+     ('scalar',) + dice_red._launch_shape(2 ** 29, 4)),
+])
+def test_dice_plan(shape, ptrs, want):
+    p = dice_red.plan(*shape, ptrs)
+    assert (p.body, p.threads, p.nblk) == want[:3]
+    if p.body == 'scalar':
+        assert p.fin is None
+        return
+    assert p.fin == want[3]
+    bs, n_vox, nb_labels = shape
+    # a block's stride through a row is whole label groups of float4s, so
+    # a thread keeps its 4 labels; the final threads fit the block
+    l4 = nb_labels // 4
+    assert p.threads % l4 == 0 and p.threads <= dice_red.THREADS
+    assert 1 <= p.fin <= p.nblk
+    assert p.fin * min(3 * l4 * bs, p.threads) <= p.threads
+    assert p.nblk <= max(1, -(-dice_red.BLOCKS // bs))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -158,12 +197,21 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(2, 1000, 3), (1, 4096, 4), (3, 17, 300)])
+@pytest.mark.parametrize('shape', [(2, 1000, 3), (1, 4096, 4), (3, 17, 300),
+                                   (3, 17, 299), (1, 64 ** 3, 16),
+                                   (2, 1000, 8), (2, 100000, 8),
+                                   (3, 50, 12)])
 def test_dice_kernel_matches_plain_on_card(cuda, shape):
     x, y = (torch.from_numpy(a).to(cuda) for a in _maps(4, shape))
+    before = _build.launches['dice_sums_vec']
     k = dice_red.dice_sums_cuda(x, y)
+    vec = shape[2] % 4 == 0
+    assert _build.launches['dice_sums_vec'] == before + vec
     p = dice_red._dice_sums_plain(x, y)
     torch.cuda.synchronize()
     for a, b in zip(k, p):
         # rtol 1e-5: another summation order
         torch.testing.assert_close(a, b, rtol=1e-5, atol=0.)
+    # a fixed order of additions: the same bits on the next call
+    for a, b in zip(k, dice_red.dice_sums_cuda(x, y)):
+        assert torch.equal(a, b)

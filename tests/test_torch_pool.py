@@ -17,7 +17,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from neurite_tpu.ops.pool import _max_pool_tiled as jax_max_pool_tiled  # noqa: E402
-from neurite_tpu_torch.ops import max_pool, pool, pool_cuda  # noqa: E402
+from neurite_tpu_torch.ops import _build, max_pool, pool, pool_cuda  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -142,6 +142,57 @@ def test_pool_dispatch_and_validation():
     assert not pool_cuda.supported((1, 8, 8, 8), (2, 2), torch.float32)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize('shape,dtype,ptrs,want', [
+    # the flagship's and config #5's three levels, config #3's two
+    ((1, 128, 128, 128, 16), BF16, (0, 512), ('vec', (128, 2), (1, 2048))),
+    ((1, 64, 64, 64, 32), BF16, (0, 512), ('vec', (128, 2), (1, 512))),
+    ((1, 32, 32, 32, 64), BF16, (0, 512), ('vec', (128, 2), (1, 128))),
+    ((1, 160, 160, 160, 8), BF16, (0, 512), ('vec', (80, 3), (1, 2134))),
+    ((1, 80, 80, 80, 16), BF16, (0, 512), ('vec', (80, 3), (1, 534))),
+    # float32: 4 lanes
+    ((2, 8, 6, 4, 4), F32, (16, 32), ('vec', (2, 128), (1, 1))),
+    ((1, 8, 8, 8, 12), F32, (16, 32), ('vec', (12, 21), (1, 1))),
+    # a row of more than 256 vectors: blocks along x, one row a block
+    ((1, 4, 4, 1024, 8), BF16, (0, 16), ('vec', (256, 1), (2, 4))),
+    # the channels do not fill 16 bytes, or a pointer is not 16-byte aligned
+    ((1, 32, 32, 32, 7), BF16, (0, 16), ('scalar', None, None)),
+    ((1, 8, 8, 8, 4), BF16, (0, 16), ('scalar', None, None)),
+    ((1, 8, 8, 8, 6), F32, (0, 16), ('scalar', None, None)),
+    ((1, 128, 128, 128, 16), BF16, (2, 512), ('scalar', None, None)),
+    ((1, 128, 128, 128, 16), F32, (0, 4), ('scalar', None, None)),
+])
+def test_pool_plan(shape, dtype, ptrs, want):
+    p = pool_cuda.plan(shape, dtype, ptrs)
+    assert (p.body, p.block, p.grid) == want
+    if p.body == 'scalar':
+        return
+    b, d, h, w, c = shape
+    per_row = w // 2 * c * dtype.itemsize // 16
+    rows = b * (d // 2) * (h // 2)
+    (tx, ty), (gx, gy) = p.block, p.grid
+    # every vector of a row has a thread, and the grid's rows cover them all
+    # without a stride: no shape here is past 65535 row blocks
+    assert tx * ty <= pool_cuda.THREADS and gx * tx >= per_row
+    assert gx * tx - per_row < tx and gy * ty >= rows > (gy - 1) * ty
+    assert not p.wide
+
+
+def test_pool_plan_folds_rows_and_widens_offsets():
+    # 256^2 output rows: past 65535 row blocks, the rest by a grid stride;
+    # 2^31 elements: 64-bit offsets, still the vec body
+    p = pool_cuda.plan((1, 512, 512, 512, 16), BF16, (0, 0))
+    assert p.body == 'vec' and p.grid == (2, pool_cuda.MAX_GRID_Y)
+    assert p.block == (256, 1) and p.wide
+    p = pool_cuda.plan((1, 512, 512, 512, 8), BF16, (0, 0))
+    assert p.body == 'vec' and p.grid == (1, pool_cuda.MAX_GRID_Y)
+    assert p.block == (256, 1) and not p.wide
+    p = pool_cuda.plan((4, 512, 256, 256, 16), F32, (0, 0))
+    assert p.wide and p.grid[1] == pool_cuda.MAX_GRID_Y
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -149,17 +200,39 @@ def cuda():
     return torch.device('cuda')
 
 
+def _misaligned(x):
+    """x copied into a contiguous view whose data pointer is one element
+    past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    v = buf[1:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dt', ['float32', 'bfloat16'])
-def test_pool_kernels_match_plain_on_card(cuda, dt):
-    x = torch.from_numpy(_quantized(7, (2, 8, 6, 4, 5), (1, 2, 3, 1, 4)))
+@pytest.mark.parametrize('shape,body', [
+    ((2, 8, 6, 4, 5), 'scalar'),          # C = 5: no 16-byte vectors
+    ((2, 8, 6, 4, 16), 'vec'),
+    ((1, 6, 4, 10, 24), 'vec'),           # a row of 15 or 30 vectors
+    ((2, 8, 6, 4, 16), 'misaligned'),     # the scalar body on a view
+])
+def test_pool_kernels_match_plain_on_card(cuda, dt, shape, body):
+    x = torch.from_numpy(_quantized(7, shape, (1, 2, 3, 1, 4)))
     x = x.to(device=cuda, dtype=DTYPES[dt][0])
-    g = torch.randn((2, 4, 3, 2, 5), device=cuda).to(x.dtype)
+    if body == 'misaligned':
+        x = _misaligned(x)
+    out = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2, shape[4])
+    g = torch.randn(out, device=cuda).to(x.dtype)
+    before = _build.launches['pool2_fwd_vec']
     yk, yp = pool_cuda.pool2_fwd(x), pool._max_pool_tiled_fwd(x, (2, 2, 2))
+    assert _build.launches['pool2_fwd_vec'] == before + (body == 'vec')
     dk = pool_cuda.pool2_bwd(x, g)
     dp = pool._max_pool_tiled_bwd(x, yp, g, (2, 2, 2))
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(yk), torch.isnan(yp))
     keep = ~torch.isnan(yp)
-    assert torch.equal(yk[keep], yp[keep])
+    ity = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[x.dtype]
+    # the raw bits of the winning tap
+    assert torch.equal(yk[keep].view(ity), yp[keep].view(ity))
     assert torch.equal(dk, dp)
