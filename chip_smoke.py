@@ -41,8 +41,13 @@ launch counts set to 0 just before it and read just after. Phases (phase
   7. interpolation: K4 vs the plain gather chain at the synthesis path's
      shapes ([1, 64^3, 3] linear under a smooth +-8 voxel field and under
      the same field shifted by 20 voxels; [1, 128^3, 1] nearest with fill 0
-     at half-integer ties): linear within 1e-5, nearest bit-equal; K4's
-     gradient vs plain autograd at 32^3;
+     at half-integer ties), the registration step's ([1, 128^3, 1] linear,
+     field within +-3), P odd ([63, 65, 67] points) and fill with 86 % of
+     the points out of range: linear within 1e-5, nearest bit-equal; each
+     case by the 'vec' body `warp_cuda.plan` picks (counted in
+     `interpn_vec`), bit-equal to the 'scalar' body on the same inputs and
+     to itself on a misaligned view of loc, each timed beside its bound;
+     K4's gradient vs plain autograd at 32^3;
   8. blur: K6 vs the plain per-axis convs at [3, 64^3] with 41 taps and
      [1, 128^3] with 165 and 7 taps: forward within 1e-5 of max|y|, dx
      within 1e-5 and the tap gradients within 1e-4 of their largest
@@ -57,8 +62,8 @@ launch counts set to 0 just before it and read just after. Phases (phase
      range(16), out_shape=(128,)*3, one_hot=True)` feeding the bf16 UNet
      (nb_labels=16) for 10 steps of synthesis then train step; finite
      losses, one-hot maps, launch counts of K1-K4 and K6 exactly those of 10
-     steps (each K6 launch by the 'whole' body, each K1 and K3 launch by
-     its 'vec' body); synthesis ms, step ms,
+     steps (each K6 launch by the 'whole' body, each K1, K3 and K4 launch
+     by its 'vec' body); synthesis ms, step ms,
      vol/s, peak memory; no host sync in the synthesis (CUDA's sync debug
      mode); the synthesis through the kernels against the plain CPU path on
      the same raw draws at 64^3 (every K4 and K6 call of the path: the
@@ -76,12 +81,19 @@ launch counts set to 0 just before it and read just after. Phases (phase
      one-voxel body) and [1, 32^3, 4] with 2 filters (the row bodies'
      filter loops), bf16 and f32: equal. Each check names the body that
      ran, from the launch counts (`lc_fwd_row`, `lc_dk_row`, `lc_dx_row`).
-     The keras-layout `lc3d_pallas` (the v1 semantics, bf16 products
-     rounded in dx) at [160^3, 4], forward and both gradients: equal, by
-     the one-voxel bodies, and those kernels' times. Bandwidth probes: the
-     card's read rate for the weights' bytes (`w.sum(dtype=float32)` at
-     [1, 108, 160^3] bf16) beside K7 and K9, K7 timed twice, and its
-     write rate for dk's (`torch.empty_like(dk).zero_()`) beside K8;
+     The keras layout: K7, K8 and K9 at 32^3 with 2 filters and batch 3
+     (the one-voxel bodies), K8 at the batch-1 shapes above (its keras row
+     body at one filter, counted in `lc_dk_keras_row`; its one-voxel body
+     at 2) and all three through `lc3d_pallas` (the v1 semantics, bf16
+     products rounded in dx) at [160^3, 4], forward and both gradients:
+     equal; there K8 by its keras row body, bit-equal to its one-voxel
+     body too, K7 and K9 by their one-voxel bodies; those kernels' times,
+     K8's keras row body beside its bound, its one-voxel body and the
+     write probe.
+     Bandwidth probes: the card's read rate for the weights' bytes
+     (`w.sum(dtype=float32)` at [1, 108, 160^3] bf16) beside K7 and K9, K7
+     timed twice, and its write rate for dk's
+     (`torch.empty_like(dk).zero_()`) beside K8;
  11. one float32 config #3 step at 64^3 through the kernels and one through
      the plain versions from the same weights (TF32 off, deterministic
      cuDNN): losses within rtol 1e-5, each gradient within 1e-4 of its
@@ -115,7 +127,7 @@ launch counts set to 0 just before it and read just after. Phases (phase
  15. MI registration at 128^3 (moving/fixed blob pair, field [1, 128^3, 3]
      from zero, clamp +-3, `MutualInformation(nb_bins=16)`, Adam 1e-2),
      10 steps: finite, falling losses, launches exactly K10 10 (by the
-     'tiled' body) and K4 10,
+     'tiled' body) and K4 10 (by the 'vec' body),
      no host sync in a step, median step ms, pairs/s, peak memory, a
      profile of 3 steps, and the same steps through `MI.volumes` (twin).
 
@@ -131,7 +143,8 @@ over 3.35 TB/s and its operations over the H100's peak for their type
 PyTorch call computing the same function, timed here and used nowhere in
 the port.
 
-Prints one line per check, then a JSON line of the kernels, and last
+Prints one line per check, then a JSON line of the kernels (each with its
+path run's launches and body launches, `body_launches`), and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
 machine without a CUDA device. Run with --phases, a kernel's fields that
 no phase of the run measured are null, and both JSON lines carry the
@@ -193,6 +206,15 @@ KERNELS = {
               'neurite_tpu/ops/pallas_lc.py:252', '10', '12'),
     'mi_hist': ('neurite_tpu_torch/ops/csrc/mi_hist.cu',
                 'neurite_tpu/ops/mi_hist.py:90', '13', '15'),
+}
+# each kernel's body counters (`_build.launches`): the kernels line gives
+# their counts from the path run beside the kernel's launches
+BODY_COUNTERS = {
+    'pool2_fwd': ('pool2_fwd_vec',), 'pool2_bwd': (),
+    'dice_sums': ('dice_sums_vec',), 'interpn': ('interpn_vec',),
+    'blur': ('blur_whole',), 'lc_fwd': ('lc_fwd_row',),
+    'lc_dk': ('lc_dk_row', 'lc_dk_keras_row'), 'lc_dx': ('lc_dx_row',),
+    'mi_hist': ('mi_hist_tiled',),
 }
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
@@ -338,6 +360,14 @@ def add_bound(r, nbytes, flops=0.):
     share = r.setdefault('_bound_share', {})
     share[by] = share.get(by, 0.) + t
     r['bound_by'] = max(share, key=share.get)
+
+
+def record_launches(res, name, counts):
+    """Kernel `name`'s launches and body launches in a path run's counts,
+    for the kernels line."""
+    res[name]['launches'] = counts.get(name, 0)
+    res[name]['body_launches'] = {c: counts.get(c, 0)
+                                  for c in BODY_COUNTERS[name]}
 
 
 def bit_equal(a, b):
@@ -657,7 +687,7 @@ def phase_train(checks, res, x, y):
         got = counts.get(name, 0)
         checks.check(f'launches {name}', got == n and got > 0,
                      f'{got} (expected {n})')
-        res[name]['launches'] = got
+        record_launches(res, name, counts)
     check_vec_bodies(checks, 'flagship', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
@@ -673,8 +703,8 @@ def phase_train(checks, res, x, y):
 
 
 def check_vec_bodies(checks, path, counts):
-    """Every K1 and K3 launch of a path's run by its 'vec' body."""
-    for name in ('pool2_fwd', 'dice_sums'):
+    """Every K1, K3 and K4 launch of a path's run by its 'vec' body."""
+    for name in ('pool2_fwd', 'dice_sums', 'interpn'):
         if name in counts:
             got = counts.get(f'{name}_vec', 0)
             checks.check(f'{path} launches {name}_vec', got == counts[name],
@@ -716,48 +746,85 @@ def phase_interpn(checks, res):
     v128 = (VOL,) * 3
     lab = torch.randint(0, SYNTH_LABELS, (1, *v128, 1), generator=gen,
                         device='cuda').float()
+    grid128 = core.grid_points(v128, 'cuda')[None]
     # every point on a half-integer or integer: the ties of round-half-even
-    loc128 = torch.round(2 * (core.grid_points(v128, 'cuda')[None]
-                              + smooth_field(v128, 8., gen))) / 2
-    cases = [  # (name, vol, loc, method, fill, calls per synthesis step)
+    loc128 = torch.round(2 * (grid128 + smooth_field(v128, 8., gen))) / 2
+    # the registration step's warp: an image at the grid plus a smooth
+    # field clamped to +-3 voxels, as `batch_transform` calls K4
+    img = torch.rand((1, *v128, 1), generator=gen, device='cuda')
+    loc_reg = grid128 + torch.clamp(smooth_field(v128, 4., gen), -3., 3.)
+    odd = (63, 65, 67)   # P = 274365: a ragged last block
+    loc_odd = core.grid_points(odd, 'cuda')[None] + smooth_field(odd, 8., gen)
+    cases = [  # (name, vol, loc, method, fill, calls per config #5 step,
+               #  calls per registration step)
         ('64^3 C=3 linear, +-8 field (v2 regime)', vol3, grid + field,
-         'linear', None, 5),
+         'linear', None, 5, 0),
         ('64^3 C=3 linear, +-8 field + 20 shift (v1 regime)', vol3,
-         grid + field + 20., 'linear', None, 0),
+         grid + field + 20., 'linear', None, 0, 0),
         ('128^3 C=1 nearest, fill 0, half-integer ties', lab, loc128,
-         'nearest', 0., 1),
+         'nearest', 0., 1, 0),
+        ('128^3 C=1 linear, registration field within +-3', img, loc_reg,
+         'linear', None, 0, 1),
+        ('[63, 65, 67] points from 64^3 C=3 linear (P odd)', vol3, loc_odd,
+         'linear', None, 0, 0),
+        ('64^3 C=3 linear, fill 2.5, +-8 field + 30 shift (out of range)',
+         vol3, grid + field + 30., 'linear', 2.5, 0, 0),
     ]
-    for name, vol, loc, method, fill, per_step in cases:
+    reg = {'ms': 0., 'bound': 0.}
+    for name, vol, loc, method, fill, per_step, per_reg in cases:
+        body = warp_cuda.plan(vol, loc)
+        vec0 = _build.launches['interpn_vec']
         k = warp_cuda.interpn3d(vol, loc, method, fill)
+        counted = _build.launches['interpn_vec'] - vec0
+        # the scalar body on the same inputs
+        s_out = torch.empty_like(k)
+        warp_cuda._launch(vol, loc, s_out, method, fill, 'scalar')
+        # the 'vec' body on a misaligned contiguous view of the same loc
+        loc_m = misaligned(loc)
+        m_out = warp_cuda.interpn3d(vol, loc_m, method, fill)
         p = core.interpn_plain(vol, loc, method, fill, batched=True)
         torch.cuda.synchronize()
         err = max_abs_err(k, p)
+        same = bit_equal(k, s_out) and bit_equal(k, m_out)
+        filled = '' if fill is None else \
+            f'; filled share {float((k == fill).float().mean()):.4f}'
+        ok_body = body == 'vec' and counted == 1
         if method == 'nearest':
             ok = bit_equal(k, p)
-            filled = float((k == 0).float().mean())
-            checks.check(f'interpn {name}', ok,
-                         f'bit-equal {ok}; filled share {filled:.4f}')
+            detail = f'bit-equal to plain {ok}'
         else:
             ok = err <= 1e-5
-            checks.check(f'interpn {name}', ok,
-                         f'max abs err {err:.3g} (atol 1e-5); bit-equal '
-                         f'{bit_equal(k, p)}')
+            detail = (f'max abs err {err:.3g} (atol 1e-5); bit-equal to '
+                      f'plain {bit_equal(k, p)}')
+        checks.check(f'interpn {name}', ok and same and ok_body,
+                     f'body {body!r} (vec expected, counted interpn_vec '
+                     f'{counted}); bit-equal to the scalar body and on a '
+                     f'misaligned view: {same}; {detail}{filled}')
         k_ms = time_ms(lambda: warp_cuda.interpn3d(vol, loc, method, fill))
+        s_ms = time_ms(lambda: warp_cuda._launch(vol, loc, s_out, method,
+                                                 fill, 'scalar'))
         p_ms = time_ms(lambda: core.interpn_plain(vol, loc, method, fill,
                                                   batched=True))
         l_ms = time_ms(grid_sample_call(vol, loc, method))
         nbytes = (vol.numel() + loc.numel() + k.numel()) * 4
         b_ms, _ = bound_ms(nbytes)
         c_ms = call_ms(lambda: warp_cuda.interpn3d(vol, loc, method, fill))
-        print(f'  interpn {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
-              f'grid_sample {l_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); one '
-              f'kernel call {c_ms:.4f} ms', flush=True)
+        print(f'  interpn {name}: {body} body {k_ms:.4f} ms, scalar body '
+              f'{s_ms:.4f} ms, plain {p_ms:.4f} ms, grid_sample '
+              f'{l_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); one kernel call '
+              f'{c_ms:.4f} ms', flush=True)
         r['max_abs_err'] = max(r['max_abs_err'], err)
         for _ in range(per_step):   # a synthesis step's calls sum
             r['ms'] += k_ms
             r['plain_ms'] += p_ms
             r['library_ms'] += l_ms
             add_bound(r, nbytes)
+        reg['ms'] += per_reg * k_ms
+        reg['bound'] += per_reg * b_ms
+    print(f'  K4 a config #5 step (5 linear 64^3 + 1 nearest 128^3): '
+          f'{r["ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms; a registration '
+          f'step (1 linear 128^3): {reg["ms"]:.4f} ms, bound '
+          f'{reg["bound"]:.4f} ms', flush=True)
 
     # the gradient: K4's autograd function against plain autograd, 32^3
     v32 = (32,) * 3
@@ -1049,7 +1116,7 @@ def phase_synth_train(checks, res):
         checks.check(f'config #5 launches {name}', got == want and got > 0,
                      f'{got} (expected {n} per step)')
         if name in ('interpn', 'blur'):
-            res[name]['launches'] = got
+            record_launches(res, name, counts)
     check_vec_bodies(checks, 'config #5', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     s_ms = statistics.median(synth_ms[WARMUP_STEPS:])
@@ -1140,12 +1207,15 @@ def lc_bound(name, x, k, g):
 
 
 def body_run(name, kern):
-    """(result, body that ran: 'row' or 'voxel') of kern(), one launch of
-    kernel `name` ('lc_fwd', 'lc_dk' or 'lc_dx'), read from the launch
-    counts."""
-    before = _build.launches[name + '_row']
+    """(result, body that ran: 'row', 'keras_row' or 'voxel') of kern(), one
+    launch of kernel `name` ('lc_fwd', 'lc_dk' or 'lc_dx'), read from the
+    launch counts."""
+    bodies = ('row', 'keras_row')
+    before = [_build.launches[f'{name}_{b}'] for b in bodies]
     out = kern()
-    return out, 'row' if _build.launches[name + '_row'] > before else 'voxel'
+    ran = [b for b, n in zip(bodies, before)
+           if _build.launches[f'{name}_{b}'] > n]
+    return out, ran[0] if ran else 'voxel'
 
 
 def phase_lc(checks, res):
@@ -1217,12 +1287,13 @@ def phase_lc(checks, res):
                 (a, body), b = body_run(name, kern), plain()
                 torch.cuda.synchronize()
                 err = max_abs_err(a, b)
+                want = 'voxel'
                 checks.check(
                     f'{name} {str(dtype)[6:]} 32^3 O=2 B=3 '
                     f'{"keras" if keras else "transposed"}',
-                    bit_equal(a, b) and body == 'voxel',
+                    bit_equal(a, b) and body == want,
                     f'equal {bool(torch.equal(a, b))}, max abs err '
-                    f'{err:.3g}, body {body} (voxel expected)')
+                    f'{err:.3g}, body {body} ({want} expected)')
                 res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
     # off the head's shape, batch 1: W = 19 (a thread's voxels would cross
     # rows: the one-voxel bodies); W = 24, V = 16*17*24 = 6528 (the row
@@ -1230,7 +1301,8 @@ def phase_lc(checks, res):
     # block, and warps that span two rows); 'valid' at [16, 17, 18], out
     # [14, 15, 16] (K7's and K8's row bodies without padding; K9's row body
     # takes 'same' only); 32^3 with 2 filters (the row bodies' filter
-    # loops); equal
+    # loops); equal. K8 in the keras layout too: its keras row body at one
+    # filter (ragged last blocks), its one-voxel body at 2
     for sp, padding, O, want in (((15, 17, 19), 'same', 1, 'voxel'),
                                  ((16, 17, 24), 'same', 1, 'row'),
                                  ((16, 17, 18), 'valid', 1, 'row'),
@@ -1263,6 +1335,17 @@ def phase_lc(checks, res):
                              f'equal {bool(torch.equal(a, b))}, max abs err '
                              f'{max_abs_err(a, b):.3g}, body {body} '
                              f'({expect} expected)')
+            expect = 'keras_row' if O == 1 else 'voxel'
+            a, body = body_run('lc_dk', lambda: lc_cuda.dk_cuda(
+                g, x, LC_KS, padding, dtype, keras=True))
+            b = lc_cuda.dk_plain(g, x, LC_KS, padding, dtype, keras=True)
+            torch.cuda.synchronize()
+            checks.check(f'lc_dk keras {str(dtype)[6:]} x {list(x.shape)} '
+                         f'O={O} {padding}',
+                         bit_equal(a, b) and body == expect,
+                         f'equal {bool(torch.equal(a, b))}, max abs err '
+                         f'{max_abs_err(a, b):.3g}, body {body} '
+                         f'({expect} expected)')
 
     # the keras-layout v1 entry point through autograd, at the head's shape
     sp, V = (LC_VOL,) * 3, LC_VOL ** 3
@@ -1270,15 +1353,15 @@ def phase_lc(checks, res):
     k2 = torch.randn((V, 108), generator=gen, device='cuda').bfloat16()
     gf = torch.randn((V, 1), generator=gen, device='cuda')
     xr, kr = xf.clone().requires_grad_(), k2.clone().requires_grad_()
-    rows = sum(_build.launches[n + '_row'] for n in ('lc_fwd', 'lc_dk',
-                                                      'lc_dx'))
+    names = ('lc_fwd_row', 'lc_dk_row', 'lc_dx_row', 'lc_dk_keras_row')
+    before = {n: _build.launches[n] for n in names}
     y = lc_cuda.lc3d_pallas(xr, kr, sp, LC_KS)
     dx, dk = torch.autograd.grad(y, (xr, kr), gf)
-    rows = sum(_build.launches[n + '_row'] for n in ('lc_fwd', 'lc_dk',
-                                                      'lc_dx')) - rows
-    checks.check('lc3d_pallas (keras, v1) bodies', rows == 0,
-                 f'{rows} row-body launches (0 expected: the keras strides '
-                 f'take the one-voxel bodies)')
+    ran = {n: _build.launches[n] - before[n] for n in names}
+    checks.check('lc3d_pallas (keras, v1) bodies',
+                 ran == {**dict.fromkeys(names[:3], 0), 'lc_dk_keras_row': 1},
+                 f'{ran} (expected: K8 by its keras row body; K7 and K9 by '
+                 f'their one-voxel bodies, no row-body launch)')
     x5, g5 = xf.reshape(1, *sp, 4), gf.reshape(1, *sp, 1)
     kv = lc_cuda._weight_view(k2, True)
     want = (lc_cuda.fwd_plain(x5, kv, LC_KS, 'same').reshape(V, 1),
@@ -1293,12 +1376,29 @@ def phase_lc(checks, res):
         checks.check(f'lc3d_pallas (keras, v1) bf16 [{V}, 4] {what}',
                      bit_equal(a, b), f'max abs err {err:.3g}')
         res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+    # K8's one-voxel body in the keras layout, the body 'keras_row'
+    # replaced: bit-equal, and timed beside it
+    dk1 = torch.empty_like(k2)
+    view1 = lc_cuda._weight_view(dk1, True)
+    lc_cuda._dk_launch(g5, x5, view1, LC_KS, 'same', 'voxel')
+    torch.cuda.synchronize()
+    checks.check(f'lc_dk keras [{V}, 4] bf16: keras_row vs one-voxel body',
+                 bit_equal(dk, dk1), 'bit-equal (the dk above ran by '
+                 'keras_row)')
     # the keras-layout kernels' times at the head (Pallas rows 9-11; no
-    # layer routes the step to them)
+    # layer routes the step to them), K8's keras row body beside its bytes
+    # bound and the card's write rate for the same bytes
     times = [f'{name} {time_ms(kern):.4f} ms'
              for name, kern, _ in lc_calls(x5, k2, g5, True)]
-    print(f'  keras-layout kernels (one-voxel bodies) at [{V}, 4] bf16: '
-          + ', '.join(times), flush=True)
+    voxel_ms = time_ms(lambda: lc_cuda._dk_launch(g5, x5, view1, LC_KS,
+                                                  'same', 'voxel'))
+    write_ms = time_ms(lambda: torch.empty_like(dk1).zero_())
+    b_ms, b_by = bound_ms(*lc_bound('lc_dk', x5, view1, g5))
+    print(f'  keras-layout kernels at [{V}, 4] bf16 (K7, K9 one-voxel '
+          f'bodies; K8 keras_row): ' + ', '.join(times)
+          + f'; K8 one-voxel body {voxel_ms:.4f} ms; K8 bound {b_ms:.4f} ms '
+          f'({b_by}); write probe torch.empty_like(dk).zero_() '
+          f'{write_ms:.4f} ms', flush=True)
 
 
 class EncDecLC(torch.nn.Module):
@@ -1418,7 +1518,7 @@ def phase_lc_train(checks, res):
         checks.check(f'config #3 launches {name}', got == want and got > 0,
                      f'{got} (expected {n} per step)')
         if name in ('lc_fwd', 'lc_dk', 'lc_dx'):
-            res[name]['launches'] = got
+            record_launches(res, name, counts)
     check_vec_bodies(checks, 'config #3', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
@@ -1680,11 +1780,11 @@ def phase_reg_train(checks, res):
     checks.check('MI registration losses finite and falling',
                  all(np.isfinite(losses)) and losses[-1] < losses[0],
                  ' '.join(f'{v:.6f}' for v in losses))
-    for name in ('mi_hist', 'mi_hist_tiled', 'interpn'):
+    for name in ('mi_hist', 'mi_hist_tiled', 'interpn', 'interpn_vec'):
         got = counts.get(name, 0)
         checks.check(f'MI registration launches {name}',
                      got == TRAIN_STEPS, f'{got} (expected 1 per step)')
-    res['mi_hist']['launches'] = counts.get('mi_hist', 0)
+    record_launches(res, 'mi_hist', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
           f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
@@ -1786,8 +1886,9 @@ def main(argv=None):
     card = phase_device()
     checks = Checks()
     res = {n: {'name': n, 'route': 'cuda', 'source': src, 'replaces': rep,
-               'launches': 0, 'max_abs_err': 0., 'ms': 0., 'plain_ms': 0.,
-               'bound_ms': 0., 'bound_by': None, 'library_ms': 0.}
+               'launches': 0, 'body_launches': {}, 'max_abs_err': 0.,
+               'ms': 0., 'plain_ms': 0., 'bound_ms': 0., 'bound_by': None,
+               'library_ms': 0.}
            for n, (src, rep, _, _) in KERNELS.items()}
     build = f'{phase_build():.3f} s' if '2' in run else 'not run (phase 2)'
     phases = {
@@ -1814,7 +1915,7 @@ def main(argv=None):
         if measure not in run:
             res[n].update(dict.fromkeys(MEASURED))
         if count not in run:
-            res[n]['launches'] = None
+            res[n].update(launches=None, body_launches=None)
     ran = ",".join(p for p in PHASES if p in run)
     print(f'phases run: {ran}'
           + ('' if len(run) == len(PHASES) else

@@ -49,6 +49,8 @@ _SIGNATURES = {
     'neurite_dice_sums_vec_f32': [_vp] * 5 + [_i64, _i64] + [_int] * 4 + [_vp],
     'neurite_interpn3d_f32': [_vp, _vp, _vp] + [_i64] * 6 + [_int, _int, _f32,
                                                              _vp],
+    'neurite_interpn3d_vec_f32': [_vp, _vp, _vp] + [_i64] * 6
+                                 + [_int, _int, _f32, _vp],
     'neurite_blur_axis_f32': [_vp] * 3 + [_i64] * 3 + [_int] * 4 + [_vp],
     'neurite_lc_fwd': [_vp, _vp, _vp, _i64p, _int, _int, _int, _vp],
     'neurite_lc_dk': [_vp, _vp, _vp, _i64p, _int, _int, _int, _vp],

@@ -30,7 +30,8 @@
 // channels of a tap together, so their loads are in flight together.
 //
 // Each kernel has two bodies, picked by the caller (`lc_cuda.fwd_body`,
-// `dk_body`, `dx_body`). With one voxel a thread (`lc_fwd_kernel`,
+// `dk_body`, `dx_body`), and K8 a third for the keras layout (below). With
+// one voxel a thread (`lc_fwd_kernel`,
 // `lc_dk_kernel`, `lc_dx_kernel`: any layout and shape) each weight is a
 // 2-byte (bf16) load or store a thread, 64 bytes a warp: at the config #3
 // head that is 13.8 M load or store instructions a warp for 885 MB, and the
@@ -53,6 +54,22 @@
 //   along W. It loads its own aligned 16 bytes and takes the one element
 //   beyond them from the neighbouring lane's (a warp shuffle; lanes 0 and
 //   31 load it, 2 bytes), masked by its vx where a warp spans two rows.
+// - K8's keras row body (`lc_dk_keras_row_kernel`, 'keras_row': the keras
+//   strides with dk 16-byte aligned, on the row bodies' head conditions
+//   but for the layout: B = 1, C = 4, O = 1, ky and kx <= 3, x aligned to
+//   its voxels; every other keras shape takes the one-voxel body). In the
+//   keras layout a voxel's 108 weights at the head are one 216-byte run, so
+//   the one-voxel body's 2-byte stores put neighbouring threads 216 bytes
+//   apart: every warp store touches 32 sectors for 64 useful bytes. dk
+//   [V, TC, O] is one contiguous run: a block of VB voxels (one a thread)
+//   computes its [VB, TC] part into shared memory, four channels of a tap
+//   as one load of x and one 8- or 16-byte shared store, then streams it
+//   out in 16-byte chunks, neighbouring threads on neighbouring chunks. The
+//   shared-memory traffic (each byte stored and loaded once) sits beside
+//   the 884.7 MB written. Measured at the head, bf16 (NVIDIA H100 80GB
+//   HBM3, 700 W; `chip_smoke.py` phase 10): 0.3290 ms against the
+//   one-voxel body's 8.3317, a 0.2788 ms bytes bound and 0.2685 ms for
+//   `zero_()` of the same bytes.
 // The bytes each moves at the head: 884.7 MB of weights (K8 writes all of
 // them; K7 and K9 read the 873.7 MB whose taps reach the volume, plus the
 // few rows that a thread's 16 bytes share with them), 32.8 MB of x or dx
@@ -270,6 +287,17 @@ __device__ __forceinline__ void store_quads(float* p,
         make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
 }
 
+// Four values of one tap, rounded once each, by one 8-byte (bf16) or
+// 16-byte (float32) store to an aligned address.
+__device__ __forceinline__ void store_quad(bf16* p, const float (&a)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]));
+}
+
+__device__ __forceinline__ void store_quad(float* p, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+}
+
 // Voxels a thread of the K8 row body owns: 16 bytes of weights.
 template <typename TK>
 __host__ __device__ constexpr int row_voxels() {
@@ -340,6 +368,78 @@ lc_dk_row_kernel(const float* __restrict__ gr, const TX* __restrict__ x,
       }
     }
   }
+}
+
+// The K8 keras row body (`lc_cuda.dk_body` -> 'keras_row'): dk in the keras
+// layout [V, TC, O] is one contiguous run, V * TC * O elements. A block owns
+// VB consecutive output voxels (one a thread) and their VB * TC run (O = 1),
+// staged in shared memory: at B = 1, C = 4 and ky, kx <= 3 (the config #3
+// head) each tap is one 8- or 16-byte load of x's four channels, the
+// ky * kx loads of a tz plane issued together, and one 8- or 16-byte shared
+// store. Then the block streams the tile out: thread i stores the 16-byte
+// chunks i, i + VB, ... by streaming stores, so a warp writes 512
+// contiguous bytes a store. VB * TC * sizeof(TK) <= 48 KB
+// (`keras_tile_voxels`); the run of every block starts 16-byte aligned (VB
+// is a multiple of 8) and the last block's tail is stored element by
+// element. Each value is the one-voxel body's sum at B = 1: -0 + g * x,
+// cast once.
+template <typename TX, typename TK>
+__global__ void __launch_bounds__(128)
+lc_dk_keras_row_kernel(const float* __restrict__ gr, const TX* __restrict__ x,
+                       TK* __restrict__ dk, Geo g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TK* tile = reinterpret_cast<TK*>(smem);
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Vo = Wo * Ho * (int)g.Do;
+  const int D = (int)g.D, H = (int)g.H, W = (int)g.W;
+  const int TC = (int)(g.kz * g.ky * g.kx) * kChans;
+  const int VB = blockDim.x;
+  const int v0 = blockIdx.x * VB;
+  const int nv = min(VB, Vo - v0);
+  if ((int)threadIdx.x < nv) {
+    const int v = v0 + threadIdx.x;
+    const int wo = v % Wo, ho = (v / Wo) % Ho, zo = v / (Wo * Ho);
+    TK* tv = tile + threadIdx.x * TC;
+    typedef Quad<TX> Q;
+    const float gv = gr[v];
+    for (int tz = 0; tz < (int)g.kz; ++tz) {
+      const int zi = zo + tz - (int)g.pz;
+      const bool okz = zi >= 0 && zi < D;
+      typename Q::type q[kRowTaps][kRowTaps];
+#pragma unroll
+      for (int ty = 0; ty < kRowTaps; ++ty) {
+        const int yi = ho + ty - (int)g.py;
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+          const int xi = wo + tx - (int)g.px;
+          const bool ok = okz && ty < (int)g.ky && tx < (int)g.kx &&
+                          yi >= 0 && yi < H && xi >= 0 && xi < W;
+          q[ty][tx] = ok ? Q::load(x + ((int64_t)(zi * H + yi) * W + xi) *
+                                           kChans)
+                         : typename Q::type{};
+        }
+      }
+#pragma unroll
+      for (int ty = 0; ty < kRowTaps; ++ty) {
+#pragma unroll
+        for (int tx = 0; tx < kRowTaps; ++tx) {
+          float a[kChans];
+#pragma unroll
+          for (int c = 0; c < kChans; ++c)
+            a[c] = __fadd_rn(-0.f, __fmul_rn(gv, Q::chan(q[ty][tx], c)));
+          if (ty < (int)g.ky && tx < (int)g.kx)
+            store_quad(tv + ((tz * g.ky + ty) * g.kx + tx) * kChans, a);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  constexpr int NE = 16 / (int)sizeof(TK);  // elements a 16-byte chunk
+  const int n = nv * TC;
+  TK* dst = dk + (int64_t)v0 * TC;
+  for (int i = threadIdx.x; i < n / NE; i += VB)
+    __stcs(reinterpret_cast<uint4*>(dst) + i,
+           reinterpret_cast<const uint4*>(tile)[i]);
+  for (int i = n / NE * NE + threadIdx.x; i < n; i += VB) dst[i] = tile[i];
 }
 
 // 16 bytes of one weight row (NV consecutive voxels) by one streaming load
@@ -670,6 +770,9 @@ Geo make_geo(const int64_t* a) {
 
 constexpr int kThreads = 256;
 
+// Shared memory a block of the K8 keras row body may stage (no opt-in).
+constexpr int64_t kKerasTileBytes = 48 * 1024;
+
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -689,17 +792,36 @@ void fwd(const void* x, const void* k, float* y, const Geo& g, int row,
                             s>>>((const TX*)x, (const TK*)k, y, g);
 }
 
+// Voxels a block of the keras row body owns: the most of 128, 64 and 32
+// whose [VB, TC] tile fits 48 KB of shared memory (the caller has checked
+// that 32 do).
+int keras_tile_voxels(const Geo& g, int elem) {
+  const int64_t bytes = g.kz * g.ky * g.kx * g.C * elem;
+  int vb = 128;
+  while (vb > 32 && vb * bytes > kKerasTileBytes) vb /= 2;
+  return vb;
+}
+
+// body: 0 the one-voxel body, 1 the row body, 2 the keras row body (each
+// on its `lc_cuda.dk_body` conditions).
 template <typename TX, typename TK>
-void dkk(const float* gr, const void* x, void* dk, const Geo& g, int row,
+void dkk(const float* gr, const void* x, void* dk, const Geo& g, int body,
          cudaStream_t s) {
   const int64_t Vo = g.Do * g.Ho * g.Wo;
-  if (row)
+  if (body == 2) {
+    const int vb = keras_tile_voxels(g, (int)sizeof(TK));
+    const size_t smem = (size_t)vb * g.kz * g.ky * g.kx * g.C * sizeof(TK);
+    const unsigned nb = (unsigned)((Vo + vb - 1) / vb);
+    lc_dk_keras_row_kernel<TX, TK><<<nb, vb, smem, s>>>(gr, (const TX*)x,
+                                                        (TK*)dk, g);
+  } else if (body == 1) {
     lc_dk_row_kernel<TX, TK>
         <<<blocks_for(Vo / row_voxels<TK>()), kThreads, 0, s>>>(
             gr, (const TX*)x, (TK*)dk, g);
-  else
+  } else {
     lc_dk_kernel<TX, TK><<<blocks_for(Vo), kThreads, 0, s>>>(
         gr, (const TX*)x, (TK*)dk, g);
+  }
 }
 
 template <typename TX, typename TK>
@@ -740,14 +862,17 @@ int neurite_lc_fwd(const void* x, const void* k, float* y, const int64_t* geo,
   return (int)cudaGetLastError();
 }
 
+// body (K8): 0 the one-voxel body, 1 the row body, 2 the keras row body
+// (the keras strides, dk 16-byte aligned, B = 1, C = 4, O = 1, ky and
+// kx <= 3, x aligned to its voxels, a [32, TC] tile within 48 KB).
 int neurite_lc_dk(const float* gr, const void* x, void* dk, const int64_t* geo,
-                  int x_bf16, int k_bf16, int row, cudaStream_t stream) {
+                  int x_bf16, int k_bf16, int body, cudaStream_t stream) {
   const Geo g = make_geo(geo);
   if (g.Do * g.Ho * g.Wo == 0) return 0;
-  if (x_bf16 && k_bf16) dkk<bf16, bf16>(gr, x, dk, g, row, stream);
-  else if (x_bf16) dkk<bf16, float>(gr, x, dk, g, row, stream);
-  else if (k_bf16) dkk<float, bf16>(gr, x, dk, g, row, stream);
-  else dkk<float, float>(gr, x, dk, g, row, stream);
+  if (x_bf16 && k_bf16) dkk<bf16, bf16>(gr, x, dk, g, body, stream);
+  else if (x_bf16) dkk<bf16, float>(gr, x, dk, g, body, stream);
+  else if (k_bf16) dkk<float, bf16>(gr, x, dk, g, body, stream);
+  else dkk<float, float>(gr, x, dk, g, body, stream);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,8 @@ launches its kernel for a CUDA tensor, raising on what the kernel does not
 take. Every launch adds one to `_build.launches['lc_fwd' | 'lc_dk' |
 'lc_dx']`; a launch that takes its kernel's row body (`fwd_body`,
 `dk_body`, `dx_body`) also adds one to `_build.launches['lc_fwd_row' |
-'lc_dk_row' | 'lc_dx_row']`. The domain (`supported`) is 3-D,
+'lc_dk_row' | 'lc_dx_row']`, and one of K8's keras row body to
+`_build.launches['lc_dk_keras_row']`. The domain (`supported`) is 3-D,
 stride 1, 'same' or 'valid', any filters and channels, float32 or
 bfloat16: the TPU gates of `pallas_lc2.supported` (H % 8, the 512-term
 unroll cap, VMEM) have no counterpart on the card. `interpret` is
@@ -102,20 +103,22 @@ def fwd_cuda(x, kview, kernel_size, padding):
                     device=x.device)
     geo, xb, kb = _launch_args(tuple(x.shape), kview, kernel_size, padding,
                                x.dtype)
-    row = fwd_body(x, kview, kernel_size, padding) == 'row'
+    body = fwd_body(x, kview, kernel_size, padding)
     lib = _build.library()
     with torch.cuda.device(x.device):
         lib.call('neurite_lc_fwd', x.data_ptr(), kview.data_ptr(),
-                 y.data_ptr(), geo, xb, kb, int(row), _build.stream_of(x))
-    _count('lc_fwd', row)
+                 y.data_ptr(), geo, xb, kb, int(body == 'row'),
+                 _build.stream_of(x))
+    _count('lc_fwd', body)
     return y
 
 
-def _count(name, row):
-    """One launch of kernel `name`, by its row body if `row`."""
+def _count(name, body):
+    """One launch of kernel `name` by `body` ('voxel', 'row' or
+    'keras_row')."""
     _build.launches[name] += 1
-    if row:
-        _build.launches[name + '_row'] += 1
+    if body != 'voxel':
+        _build.launches[f'{name}_{body}'] += 1
 
 
 def _rows_of_16_bytes(x_shape, view, kernel_size, wo):
@@ -130,34 +133,66 @@ def _rows_of_16_bytes(x_shape, view, kernel_size, wo):
             and s_o % nv == 0 and view.data_ptr() % 16 == 0)
 
 
+def _row(x, view, kernel_size, padding):
+    """K8's and K7's row conditions: 16 bytes of voxels (8 bfloat16 or 4
+    float32) a thread within one output row, each (tap, channel, filter)
+    row of them one aligned 16-byte access: batch 1, 4 channels, a kernel
+    at most 3 wide along W, Wo a multiple of those voxels, the transposed
+    layout (unit voxel stride, rows and base 16-byte aligned) and x
+    aligned to its 4-channel voxels."""
+    wo = lc_tap._out_shape(x.shape[1:4], kernel_size, padding)[2]
+    return (_rows_of_16_bytes(tuple(x.shape), view, kernel_size, wo)
+            and x.data_ptr() % (4 * x.element_size()) == 0)
+
+
+KERAS_TILE_BYTES = 48 * 1024   # shared memory of a 'keras_row' block
+KERAS_TILE_VOXELS = 32         # the fewest voxels a 'keras_row' block owns
+
+
+def _keras_row(x, view, kernel_size):
+    """K8's keras row conditions: the weights' [O, TC, V] view is the keras
+    layout [V, TC, O] contiguous with its base 16-byte aligned, at the
+    config #3 head's batch 1, 4 channels, 1 filter and a kernel at most 3
+    wide along H and W, x aligned to its 4-channel voxels, and a [32, TC]
+    tile fits the block's 48 KB of shared memory."""
+    o, tc, _ = view.shape
+    return (view.permute(2, 1, 0).is_contiguous()
+            and view.data_ptr() % 16 == 0
+            and x.shape[0] == 1 and x.shape[-1] == 4 and o == 1
+            and max(kernel_size[1:]) <= 3
+            and x.data_ptr() % (4 * x.element_size()) == 0
+            and KERAS_TILE_VOXELS * tc * view.element_size()
+            <= KERAS_TILE_BYTES)
+
+
 def dk_body(x, view, kernel_size, padding):
     """The K8 body (`csrc/lc.cu`) that writes dk's [O, TC, V] view `view`
-    from x [B, D, H, W, C]: 'row' where a thread's 16 bytes of voxels (8
-    bfloat16 or 4 float32) lie in one output row and each (tap, channel,
-    filter) row of them is one aligned 16-byte store: batch 1, 4 channels,
-    a kernel at most 3 wide along W, Wo a multiple of those voxels, the
-    transposed layout (unit voxel stride, rows and base 16-byte aligned)
-    and x aligned to its 4-channel voxels (the config #3 head); else
+    from x [B, D, H, W, C]: 'row' on `_row`'s conditions (the config #3
+    head); 'keras_row' where dk is the keras layout [V, TC, O], one
+    contiguous run, at the head's shapes (`_keras_row`), which a block
+    stages in shared memory and streams out in 16-byte chunks; else
     'voxel', one voxel a thread (any layout and shape). At the head the
-    row body runs 0.33 ms against the one-voxel body's 1.35 (NVIDIA H100
-    80GB HBM3, 700 W; `chip_smoke.py` phase 10)."""
-    wo = lc_tap._out_shape(x.shape[1:4], kernel_size, padding)[2]
-    row = (_rows_of_16_bytes(tuple(x.shape), view, kernel_size, wo)
-           and x.data_ptr() % (4 * x.element_size()) == 0)
-    return 'row' if row else 'voxel'
+    row body runs 0.33 ms against the one-voxel body's 1.35, and in the
+    keras layout the keras row body 0.3290 ms against the one-voxel
+    body's 8.3317 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py` phase
+    10)."""
+    if _row(x, view, kernel_size, padding):
+        return 'row'
+    return 'keras_row' if _keras_row(x, view, kernel_size) else 'voxel'
 
 
 def fwd_body(x, view, kernel_size, padding):
     """The K7 body (`csrc/lc.cu`) that reads the weights' [O, TC, V] view
-    `view` for x [B, D, H, W, C]: 'row' on K8's row conditions (`dk_body`),
+    `view` for x [B, D, H, W, C]: 'row' on K8's row conditions (`_row`),
     where each (tap, channel, filter) row of a thread's voxels is one
     aligned 16-byte load and its taps' input voxels are loaded once per
-    (tz, ty); else 'voxel', one voxel a thread and a 2-byte load a weight.
+    (tz, ty); else 'voxel', one voxel a thread and a 2-byte load a weight
+    (the keras layout too).
     Both read the weights whose taps reach the volume once (873.7 MB at
     the config #3 head, bf16), where the row body runs 0.31 ms and the
     one-voxel body 0.79 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py`
     phase 10)."""
-    return dk_body(x, view, kernel_size, padding)
+    return 'row' if _row(x, view, kernel_size, padding) else 'voxel'
 
 
 def dx_body(x_shape, view, kernel_size, padding):
@@ -180,7 +215,7 @@ def dx_body(x_shape, view, kernel_size, padding):
 def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
     """K8: g [B, Do, Ho, Wo, O] float32 and x [B, D, H, W, C] (both
     contiguous) -> dk in `dtype`, [O, TC, V] (or [V, TC, O] if keras), the
-    batch summed in float32 and cast once."""
+    batch summed in float32 and cast once, by the body `dk_body` picks."""
     _on_cuda(g, x)
     if g.dtype != torch.float32 or not (g.is_contiguous()
                                         and x.is_contiguous()):
@@ -195,15 +230,24 @@ def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
                      device=x.device)
     view = _weight_view(dk, keras)
     _check(x, view, kernel_size, padding)
+    _dk_launch(g, x, view, kernel_size, padding,
+               dk_body(x, view, kernel_size, padding))
+    return dk
+
+
+_DK_BODY = {'voxel': 0, 'row': 1, 'keras_row': 2}
+
+
+def _dk_launch(g, x, view, kernel_size, padding, body):
+    """Launch K8's `body` on checked tensors, writing dk's [O, TC, V] view
+    `view`; `body` must hold `dk_body`'s conditions for it."""
     geo, xb, kb = _launch_args(tuple(x.shape), view, kernel_size, padding,
                                x.dtype)
-    row = dk_body(x, view, kernel_size, padding) == 'row'
     lib = _build.library()
     with torch.cuda.device(x.device):
-        lib.call('neurite_lc_dk', g.data_ptr(), x.data_ptr(), dk.data_ptr(),
-                 geo, xb, kb, int(row), _build.stream_of(x))
-    _count('lc_dk', row)
-    return dk
+        lib.call('neurite_lc_dk', g.data_ptr(), x.data_ptr(), view.data_ptr(),
+                 geo, xb, kb, _DK_BODY[body], _build.stream_of(x))
+    _count('lc_dk', body)
 
 
 def dx_cuda(g, kview, kernel_size, padding, x_shape, x_dtype, round_q=False):
@@ -221,13 +265,13 @@ def dx_cuda(g, kview, kernel_size, padding, x_shape, x_dtype, round_q=False):
         raise ValueError(f'g {tuple(g.shape)} does not fit x {x_shape}')
     geo, xb, kb = _launch_args(tuple(x_shape), kview, kernel_size, padding,
                                x_dtype)
-    row = dx_body(tuple(x_shape), kview, kernel_size, padding) == 'row'
+    body = dx_body(tuple(x_shape), kview, kernel_size, padding)
     lib = _build.library()
     with torch.cuda.device(g.device):
         lib.call('neurite_lc_dx', g.data_ptr(), kview.data_ptr(),
-                 dx.data_ptr(), geo, xb, kb, int(bool(round_q)), int(row),
-                 _build.stream_of(g))
-    _count('lc_dx', row)
+                 dx.data_ptr(), geo, xb, kb, int(bool(round_q)),
+                 int(body == 'row'), _build.stream_of(g))
+    _count('lc_dx', body)
     return dx
 
 

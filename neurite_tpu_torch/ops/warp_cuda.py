@@ -6,7 +6,17 @@ Counterpart of the Pallas warp kernels of `neurite_tpu/ops/pallas_warp.py`
 them inside its window contract. Its gradient goes through the plain
 version's autograd, as the JAX VJP rides the gather chain
 (`pallas_warp.py:371-386`); the TPU has no backward kernel to port.
+
+K4 has two bodies with the same bits, and `plan` picks one; the launcher
+trusts it: 'vec' (32-bit indices, the batch item from the grid, 4 points a
+thread for nearest and 1 for linear, a warp's lanes on consecutive points
+and the gathers of a thread's points issued together), where every offset
+fits 32 bits; 'scalar' (one point a thread, 64-bit offsets) otherwise.
+Every K4 launch adds one to `_build.launches['interpn']`, and a launch of
+the 'vec' body one to `_build.launches['interpn_vec']` too.
 """
+
+import math
 
 import torch
 
@@ -29,25 +39,49 @@ def _check(vol, loc):
         raise ValueError('vol and loc must be contiguous')
 
 
+MAX_GRID_Y = 65535  # the 'vec' body takes the batch item from blockIdx.y
+
+
+def plan(vol, loc):
+    """K4's body for vol [B, D, H, W, C] at loc [B, *out, 3]: 'vec' where
+    vol, loc and out ([B, *out, C]) each have fewer than 2^31 elements and
+    B <= 65535; else 'scalar'. Reckoned from shapes only: meta tensors will
+    do."""
+    b, c = vol.shape[0], vol.shape[-1]
+    p = math.prod(loc.shape[1:-1])
+    fits = max(vol.numel(), b * p * 3, b * p * c) < 2 ** 31
+    return 'vec' if fits and b <= MAX_GRID_Y else 'scalar'
+
+
+def _launch(vol, loc, out, interp_method, fill_value, body):
+    """Launch K4's `body` ('vec' or 'scalar') on checked tensors into
+    out."""
+    b, d, h, w, c = vol.shape
+    p = math.prod(loc.shape[1:-1])
+    args = [vol.data_ptr(), loc.data_ptr(), out.data_ptr(), b, d, h, w, c,
+            p]
+    flags = [int(interp_method == 'nearest'), int(fill_value is not None),
+             float(0. if fill_value is None else fill_value),
+             _build.stream_of(vol)]
+    lib = _build.library()
+    with torch.cuda.device(vol.device):
+        lib.call('neurite_interpn3d_vec_f32' if body == 'vec'
+                 else 'neurite_interpn3d_f32', *args, *flags)
+    _build.launches['interpn'] += 1
+    if body == 'vec':
+        _build.launches['interpn_vec'] += 1
+
+
 def interpn3d_fwd(vol, loc, interp_method, fill_value):
-    """K4: vol [B, D, H, W, C] at loc [B, *out, 3] -> [B, *out, C]."""
+    """K4: vol [B, D, H, W, C] at loc [B, *out, 3] -> [B, *out, C], by the
+    body `plan` picks."""
     _check(vol, loc)
     if interp_method not in ('linear', 'nearest'):
         raise ValueError(f'method should be linear or nearest, got: '
                          f'{interp_method}')
-    b, d, h, w, c = vol.shape
-    out_shape = tuple(loc.shape[1:-1])
-    p = loc[0, ..., 0].numel()
-    out = torch.empty((b, *out_shape, c), dtype=torch.float32,
-                      device=vol.device)
-    lib = _build.library()
-    with torch.cuda.device(vol.device):
-        lib.call('neurite_interpn3d_f32', vol.data_ptr(), loc.data_ptr(),
-                 out.data_ptr(), b, d, h, w, c, p,
-                 int(interp_method == 'nearest'), int(fill_value is not None),
-                 float(0. if fill_value is None else fill_value),
-                 _build.stream_of(vol))
-    _build.launches['interpn'] += 1
+    out = torch.empty((vol.shape[0], *loc.shape[1:-1], vol.shape[-1]),
+                      dtype=torch.float32, device=vol.device)
+    _launch(vol, loc, out, interp_method, fill_value, plan(vol, loc))
     return out
 
 

@@ -13,7 +13,7 @@ another order than XLA's); bfloat16 outputs within one bf16 ulp of JAX's,
 and dk at B=1 equal (both round the same float32 product once). On the
 card (`cuda` tests) the kernels must equal the plain versions, each body
 of K7, K8 and K9 (`lc_cuda.fwd_body`, `dk_body`, `dx_body`: 16-byte rows
-of voxels a thread, or one voxel) included.
+of voxels a thread, K8's keras row body, or one voxel) included.
 """
 import numpy as np
 import pytest
@@ -264,46 +264,68 @@ def _dk_args(x_shape, O, dtype, keras=False, ks=(3, 3, 3), padding='same',
     return x, lc_cuda._weight_view(dk, keras)
 
 
-DK_BODIES = {   # name: (x_shape, O, dtype, keras, padding, ks, the body)
+DK_BODIES = {   # name: (x_shape, O, dtype, keras, padding, ks,
+                #        the bodies of K8, K7 and K9)
     # the config #3 head: Wo = 160, a multiple of 8 bf16 or 4 f32 voxels
     'head_bf16': ((1, 160, 160, 160, 4), 1, torch.bfloat16, False, 'same',
-                  (3, 3, 3), 'row'),
+                  (3, 3, 3), ('row', 'row', 'row')),
     'head_f32': ((1, 160, 160, 160, 4), 1, torch.float32, False, 'same',
-                 (3, 3, 3), 'row'),
+                 (3, 3, 3), ('row', 'row', 'row')),
     'row_o2_bf16': ((1, 5, 6, 16, 4), 2, torch.bfloat16, False, 'same',
-                    (3, 3, 3), 'row'),
-    # 'valid': Wo = 12, 4 f32 voxels fit a row, 8 bf16 ones do not
+                    (3, 3, 3), ('row', 'row', 'row')),
+    # 'valid': Wo = 12, 4 f32 voxels fit a row, 8 bf16 ones do not; K9's
+    # row body takes 'same' only
     'row_valid_f32': ((1, 5, 6, 14, 4), 1, torch.float32, False, 'valid',
-                      (3, 3, 3), 'row'),
+                      (3, 3, 3), ('row', 'row', 'voxel')),
     'row_valid_bf16': ((1, 5, 6, 14, 4), 1, torch.bfloat16, False, 'valid',
-                       (3, 3, 3), 'voxel'),
+                       (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'b3_o2_bf16': ((3, 32, 32, 32, 4), 2, torch.bfloat16, False, 'same',
-                   (3, 3, 3), 'voxel'),
+                   (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'b3_o2_f32': ((3, 32, 32, 32, 4), 2, torch.float32, False, 'same',
-                  (3, 3, 3), 'voxel'),
+                  (3, 3, 3), ('voxel', 'voxel', 'voxel')),
+    # the keras layout: K8 by its keras row body at the head's B = 1,
+    # C = 4, O = 1 and ky, kx <= 3, else by its one-voxel body; K7 and K9
+    # by their one-voxel bodies
     'keras_head': ((1, 160, 160, 160, 4), 1, torch.bfloat16, True, 'same',
-                   (3, 3, 3), 'voxel'),
+                   (3, 3, 3), ('keras_row', 'voxel', 'voxel')),
+    'keras_valid_f32': ((1, 6, 7, 9, 4), 1, torch.float32, True, 'valid',
+                        (3, 3, 3), ('keras_row', 'voxel', 'voxel')),
     'keras_b3_o2': ((3, 32, 32, 32, 4), 2, torch.float32, True, 'same',
-                    (3, 3, 3), 'voxel'),
+                    (3, 3, 3), ('voxel', 'voxel', 'voxel')),
+    'keras_o2': ((1, 6, 7, 9, 4), 2, torch.bfloat16, True, 'same',
+                 (3, 3, 3), ('voxel', 'voxel', 'voxel')),
+    'keras_c3': ((1, 6, 7, 9, 3), 1, torch.bfloat16, True, 'same',
+                 (3, 3, 3), ('voxel', 'voxel', 'voxel')),
+    'keras_kx5': ((1, 6, 6, 16, 4), 1, torch.bfloat16, True, 'same',
+                  (3, 3, 5), ('voxel', 'voxel', 'voxel')),
+    'keras_c16_o4': ((1, 4, 4, 8, 16), 4, torch.float32, True, 'same',
+                     (3, 3, 3), ('voxel', 'voxel', 'voxel')),
+    # 32 voxels of TC = 396 float32 weights pass 48 KB of shared memory;
+    # bfloat16 ones fit
+    'keras_big_tile_f32': ((1, 12, 4, 8, 4), 1, torch.float32, True,
+                           'same', (11, 3, 3), ('voxel', 'voxel', 'voxel')),
+    'keras_kz11_bf16': ((1, 12, 4, 8, 4), 1, torch.bfloat16, True, 'same',
+                        (11, 3, 3), ('keras_row', 'voxel', 'voxel')),
     # Wo = 19: a thread's voxels would cross rows
     'ragged_bf16': ((1, 15, 17, 19, 4), 1, torch.bfloat16, False, 'same',
-                    (3, 3, 3), 'voxel'),
+                    (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'ragged_f32': ((1, 15, 17, 19, 4), 1, torch.float32, False, 'same',
-                   (3, 3, 3), 'voxel'),
+                   (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'c3_bf16': ((1, 16, 17, 16, 3), 1, torch.bfloat16, False, 'same',
-                (3, 3, 3), 'voxel'),
+                (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'kx5_bf16': ((1, 6, 6, 16, 4), 1, torch.bfloat16, False, 'same',
-                 (3, 3, 5), 'voxel'),
+                 (3, 3, 5), ('voxel', 'voxel', 'voxel')),
 }
 
 
 @pytest.mark.parametrize('case', sorted(DK_BODIES))
 def test_dk_body_picks_by_layout_and_shape(case):
     """K8's row body takes batch 1, 4 channels, kx <= 3 and whole 16-byte
-    groups of voxels in each output row of the transposed layout; the keras
-    strides, a batch, another C or kx and a ragged row take the one-voxel
-    body."""
-    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    groups of voxels in each output row of the transposed layout; its keras
+    row body the keras layout on the same batch, channels, filter and kx
+    (ky too) whose 32-voxel tile fits 48 KB; a batch, another C, O or kx
+    and a ragged row of the transposed layout take the one-voxel body."""
+    x_shape, O, dtype, keras, padding, ks, (body, _, _) = DK_BODIES[case]
     x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
     assert lc_cuda.dk_body(x, view, ks, padding) == body
 
@@ -322,11 +344,33 @@ def test_dk_body_needs_aligned_bases():
                            'same') == 'voxel'
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_dk_keras_row_needs_keras_strides_and_aligned_bases(dtype):
+    """K8's keras row body writes [V, TC, O] as one contiguous run and loads
+    x's four channels at once: a dk whose keras layout is not contiguous,
+    or that starts off a 16-byte boundary, or an x off its 4-channel
+    voxels, takes the one-voxel body."""
+    ks, shape = (3, 3, 3), (1, 4, 5, 6, 4)
+    x, view = _dk_args(shape, 1, dtype, keras=True, device='cpu')
+    assert lc_cuda.dk_body(x, view, ks, 'same') == 'keras_row'
+    flat = torch.empty(x.numel() + 1, dtype=dtype)
+    assert lc_cuda.dk_body(flat[1:].view(x.shape), view, ks,
+                           'same') == 'voxel'
+    keras = view.permute(2, 1, 0)
+    flat = torch.empty(keras.numel() + 1, dtype=dtype)
+    off = lc_cuda._weight_view(flat[1:].view(keras.shape), True)
+    assert lc_cuda.dk_body(x, off, ks, 'same') == 'voxel'
+    # the keras layout with its filter strided apart: not one run
+    wide = torch.empty((*keras.shape[:2], 2), dtype=dtype)
+    gapped = lc_cuda._weight_view(wide[..., ::2], True)
+    assert lc_cuda.dk_body(x, gapped, ks, 'same') == 'voxel'
+
+
 @pytest.mark.parametrize('case', sorted(DK_BODIES))
 def test_fwd_body_picks_by_layout_and_shape(case):
-    """K7's row body takes K8's row conditions: the same body for every
-    case of DK_BODIES."""
-    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    """K7's row body takes K8's row conditions; the keras layout takes its
+    one-voxel body (K8 alone has a keras row body)."""
+    x_shape, O, dtype, keras, padding, ks, (_, body, _) = DK_BODIES[case]
     x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
     assert lc_cuda.fwd_body(x, view, ks, padding) == body
 
@@ -334,11 +378,10 @@ def test_fwd_body_picks_by_layout_and_shape(case):
 @pytest.mark.parametrize('case', sorted(DK_BODIES))
 def test_dx_body_picks_by_layout_and_shape(case):
     """K9's row body takes K8's row conditions with 'same' padding (W =
-    Wo): 'valid' takes the one-voxel body."""
-    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    Wo): 'valid' and the keras layout take the one-voxel body."""
+    x_shape, O, dtype, keras, padding, ks, (_, _, body) = DK_BODIES[case]
     x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
-    want = body if padding == 'same' else 'voxel'
-    assert lc_cuda.dx_body(x_shape, view, ks, padding) == want
+    assert lc_cuda.dx_body(x_shape, view, ks, padding) == body
 
 
 def test_fwd_dx_bodies_need_aligned_bases():
@@ -400,7 +443,7 @@ def test_kernels_equal_plain_on_card(cuda, case, dtype):
 def test_dk_bodies_equal_plain_on_card(cuda, case):
     """Each K8 body against dk_plain on the card: equal, and the launch
     counts show which body ran."""
-    x_shape, O, dtype, keras, padding, ks, body = DK_BODIES[case]
+    x_shape, O, dtype, keras, padding, ks, (body, _, _) = DK_BODIES[case]
     out = lc_tap._out_shape(x_shape[1:4], ks, padding)
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(
@@ -414,6 +457,56 @@ def test_dk_bodies_equal_plain_on_card(cuda, case):
     assert _build.launches['lc_dk'] == 1
     assert _build.launches['lc_dk_row'] == (body == 'row')
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+KERAS_CASES = {   # name: (x_shape, O, dtype, padding, ks, K8's body)
+    # the head's B = 1, C = 4 and O = 1 (one load and store a tap); V = 378:
+    # a ragged tail
+    'quad_bf16': ((1, 6, 7, 9, 4), 1, torch.bfloat16, 'same', (3, 3, 3),
+                  'keras_row'),
+    'quad_f32': ((1, 6, 7, 9, 4), 1, torch.float32, 'same', (3, 3, 3),
+                 'keras_row'),
+    'valid_bf16': ((1, 6, 7, 9, 4), 1, torch.bfloat16, 'valid', (3, 3, 3),
+                   'keras_row'),
+    'kz5_ky2_f32': ((1, 7, 6, 9, 4), 1, torch.float32, 'same', (5, 2, 3),
+                    'keras_row'),
+    # the one-voxel body in the keras layout
+    'b3_o2_f32': ((3, 5, 6, 7, 4), 2, torch.float32, 'same', (3, 3, 3),
+                  'voxel'),
+    'b2_bf16': ((2, 5, 6, 7, 4), 1, torch.bfloat16, 'same', (3, 3, 3),
+                'voxel'),
+    'c3_valid_bf16': ((1, 6, 7, 9, 3), 1, torch.bfloat16, 'valid',
+                      (3, 3, 3), 'voxel'),
+    'kx5_f32': ((1, 6, 6, 16, 4), 1, torch.float32, 'same', (3, 3, 5),
+                'voxel'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(KERAS_CASES))
+def test_dk_keras_row_equals_plain_on_card(cuda, case):
+    """K8 in the keras layout, by the body `dk_body` picks, against
+    dk_plain(keras=True) and against K8's one-voxel body on the card: equal
+    bits, and the launch counts show which body ran."""
+    x_shape, O, dtype, padding, ks, body = KERAS_CASES[case]
+    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(
+        cuda, dtype)
+    g = torch.from_numpy(rng.normal(size=(x_shape[0], *out, O)).astype(
+        np.float32)).to(cuda)
+    _build.launches.clear()
+    got = lc_cuda.dk_cuda(g, x, ks, padding, dtype, keras=True)
+    assert _build.launches['lc_dk_keras_row'] == (body == 'keras_row')
+    want = lc_cuda.dk_plain(g, x, ks, padding, dtype, keras=True)
+    voxel = torch.empty_like(got)
+    lc_cuda._dk_launch(g, x, lc_cuda._weight_view(voxel, True), ks, padding,
+                       'voxel')
+    torch.cuda.synchronize()
+    ity = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(ity), want.view(ity))
+    assert torch.equal(got.view(ity), voxel.view(ity))
 
 
 ROW_CASES = {   # name: (x_shape, O, padding, K7's and K9's bodies)

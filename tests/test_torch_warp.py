@@ -6,7 +6,10 @@ nearest exactly), with and without `fill_value`, at points outside the
 volume, on its upper edge and at half-integer ties (round half to even); it
 must match the Pallas warps v1 and v2 (interpret mode) inside their window
 contracts; and its gradients (dvol, dloc) must match `jax.vjp` of
-`core.interpn`. On the card, K4 must equal the plain version.
+`core.interpn`. `warp_cuda.plan` must pick K4's 'vec' body (32-bit) at
+the paths' shapes and its 'scalar' body past 32 bits (reckoned from
+shapes). On the card, K4 must equal the plain version, and its two bodies
+must give the same bits.
 """
 import numpy as np
 import pytest
@@ -201,6 +204,41 @@ def test_kernel_wrapper_checks_its_input():
     assert _build.launches['interpn'] == 0
 
 
+@pytest.mark.parametrize('vol_shape, loc_shape', [
+    ((1, 64, 64, 64, 3), (1, 64, 64, 64, 3)),      # config #5's squarings
+    ((1, 128, 128, 128, 1), (1, 128, 128, 128, 3)),  # its label warp
+    ((2, 9, 10, 12, 3), (2, 9, 10, 12, 3)),
+    ((1, 64, 64, 64, 3), (1, 63, 65, 67, 3)),      # P odd: a ragged block
+    ((1, 8, 8, 8, 5), (1, 5, 3)),
+])
+def test_plan_gives_vec_at_path_shapes(vol_shape, loc_shape):
+    """'vec' (32-bit indices) wherever every size fits 32 bits: reckoned
+    from the shapes, nothing allocated."""
+    vol = torch.empty(vol_shape, device='meta')
+    loc = torch.empty(loc_shape, device='meta')
+    assert warp_cuda.plan(vol, loc) == 'vec'
+
+
+@pytest.mark.parametrize('vol_shape, loc_shape', [
+    ((1, 2048, 1024, 1024, 1), (1, 4, 3)),          # vol: 2^31 elements
+    ((1, 8, 8, 8, 1), (1, 1024, 1024, 700, 3)),     # loc: B * P * 3 >= 2^31
+    ((1, 2, 2, 2, 4096), (1, 1024, 1024, 1, 3)),    # out: B * P * C = 2^32
+    ((65536, 2, 2, 2, 1), (65536, 4, 3)),           # B past the grid's y
+])
+def test_plan_gives_scalar_past_32_bits(vol_shape, loc_shape):
+    vol = torch.empty(vol_shape, device='meta')
+    loc = torch.empty(loc_shape, device='meta')
+    assert warp_cuda.plan(vol, loc) == 'scalar'
+
+
+def test_plan_takes_any_alignment():
+    """The 'vec' body reads loc and writes out 4 bytes a lane: a misaligned
+    contiguous view takes it too."""
+    shape = (1, 6, 7, 8, 3)
+    off = torch.empty(int(np.prod(shape)) + 1)[1:].view(shape)
+    assert warp_cuda.plan(off, off) == 'vec'
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -220,3 +258,35 @@ def test_kernel_matches_plain_on_card(cuda, method):
     torch.cuda.synchronize()
     assert _build.launches['interpn'] == before + 1
     assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('channels', [1, 3, 5])
+@pytest.mark.parametrize('fill', [None, 0.])
+@pytest.mark.parametrize('method', ['linear', 'nearest'])
+def test_vec_body_matches_scalar_and_plain_on_card(cuda, method, fill,
+                                                   channels):
+    """K4's 'vec' body against its 'scalar' body, on a misaligned view of
+    loc, and against the plain version, with points outside the volume, on
+    its upper edge and at half-integer ties: the same bits (linear against
+    the plain version within 1e-5)."""
+    shape = (9, 10, 11)   # P odd: a ragged last block
+    vol = torch.from_numpy(_vol(19, (2, *shape), channels)).to(cuda)
+    loc = torch.from_numpy(np.stack([_loc(20, shape),
+                                     _loc(21, shape)])).to(cuda)
+    bad = torch.empty(loc.numel() + 1, device=cuda)[1:].view(loc.shape)
+    bad.copy_(loc)
+    _build.launches.clear()
+    k = warp_cuda.interpn3d(vol, loc, method, fill)
+    m = warp_cuda.interpn3d(vol, bad, method, fill)
+    assert _build.launches['interpn_vec'] == 2
+    s = torch.empty_like(k)
+    warp_cuda._launch(vol, loc, s, method, fill, 'scalar')
+    p = nt.utils.core.interpn_plain(vol, loc, method, fill, batched=True)
+    torch.cuda.synchronize()
+    for o in (m, s):
+        assert torch.equal(k.view(torch.int32), o.view(torch.int32))
+    if method == 'nearest':
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    else:
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-5)
