@@ -82,14 +82,18 @@ launch counts set to 0 just before it and read just after. Phases (phase
      filter loops), bf16 and f32: equal. Each check names the body that
      ran, from the launch counts (`lc_fwd_row`, `lc_dk_row`, `lc_dx_row`).
      The keras layout: K7, K8 and K9 at 32^3 with 2 filters and batch 3
-     (the one-voxel bodies), K8 at the batch-1 shapes above (its keras row
-     body at one filter, counted in `lc_dk_keras_row`; its one-voxel body
-     at 2) and all three through `lc3d_pallas` (the v1 semantics, bf16
-     products rounded in dx) at [160^3, 4], forward and both gradients:
-     equal; there K8 by its keras row body, bit-equal to its one-voxel
-     body too, K7 and K9 by their one-voxel bodies; those kernels' times,
-     K8's keras row body beside its bound, its one-voxel body and the
-     write probe.
+     (the one-voxel bodies); at the batch-1 shapes above each by its keras
+     row body at one filter (counted in `lc_fwd_keras_row`,
+     `lc_dk_keras_row`, `lc_dx_keras_row`; K9's at 'same' only, with and
+     without rounded products), its one-voxel body at 2, each equal to
+     plain and K7's and K9's to their one-voxel bodies too; K7's and K9's
+     keras row bodies with kernels (5, 2, 3), (3, 3, 2) and (11, 3, 3)
+     (K7's one-voxel body in float32 there), equal to both; and all three
+     through `lc3d_pallas` (the v1 semantics, bf16 products rounded in dx)
+     at [160^3, 4], forward and both gradients: equal, each by its keras
+     row body once (no row-body launch), each bit-equal to its one-voxel
+     body too; there each keras row body timed twice beside its one-voxel
+     body (and faster than it), its bound and the read or write probe.
      Bandwidth probes: the card's read rate for the weights' bytes
      (`w.sum(dtype=float32)` at [1, 108, 160^3] bf16) beside K7 and K9, K7
      timed twice, and its write rate for dk's
@@ -212,8 +216,9 @@ KERNELS = {
 BODY_COUNTERS = {
     'pool2_fwd': ('pool2_fwd_vec',), 'pool2_bwd': (),
     'dice_sums': ('dice_sums_vec',), 'interpn': ('interpn_vec',),
-    'blur': ('blur_whole',), 'lc_fwd': ('lc_fwd_row',),
-    'lc_dk': ('lc_dk_row', 'lc_dk_keras_row'), 'lc_dx': ('lc_dx_row',),
+    'blur': ('blur_whole',), 'lc_fwd': ('lc_fwd_row', 'lc_fwd_keras_row'),
+    'lc_dk': ('lc_dk_row', 'lc_dk_keras_row'),
+    'lc_dx': ('lc_dx_row', 'lc_dx_keras_row'),
     'mi_hist': ('mi_hist_tiled',),
 }
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -1346,6 +1351,56 @@ def phase_lc(checks, res):
                          f'equal {bool(torch.equal(a, b))}, max abs err '
                          f'{max_abs_err(a, b):.3g}, body {body} '
                          f'({expect} expected)')
+            # K7 and K9 in the keras layout: their keras row bodies at one
+            # filter (K9's at 'same' only), bit-equal to plain and to their
+            # one-voxel bodies; K9 with and without the v1's rounded
+            # products
+            kv = lc_cuda._weight_view(k.permute(2, 1, 0).contiguous(), True)
+            for name, kern, plain, voxel in keras_fwd_dx_calls(
+                    x, kv, g, padding):
+                expect = 'voxel' if O > 1 or (
+                    name.startswith('lc_dx') and padding == 'valid') \
+                    else 'keras_row'
+                (a, body), b, c = (body_run(name.split()[0], kern), plain(),
+                                   voxel())
+                torch.cuda.synchronize()
+                checks.check(f'{name} keras {str(dtype)[6:]} x '
+                             f'{list(x.shape)} O={O} {padding}',
+                             bit_equal(a, b) and bit_equal(a, c)
+                             and body == expect,
+                             f'equal to plain {bit_equal(a, b)}, to the '
+                             f'one-voxel body {bit_equal(a, c)}, max abs err '
+                             f'{max_abs_err(a, b):.3g}, body {body} '
+                             f'({expect} expected)')
+
+    # the keras row bodies of K7 and K9 at other kernel sizes, batch 1:
+    # (5, 2, 3) (an even ky: low padding 0), (3, 3, 2) (a halo of one voxel
+    # along W), (11, 3, 3) (TC = 396: K7's 32-voxel blocks in bf16, its
+    # float32 tiles past 48 KB: its one-voxel body); equal to plain and to
+    # the one-voxel bodies
+    for sp, ks in (((7, 6, 9), (5, 2, 3)), ((6, 7, 9), (3, 3, 2)),
+                   ((12, 4, 8), (11, 3, 3))):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, *sp, 4), generator=gen,
+                            device='cuda').to(dtype)
+            k2 = torch.randn((math.prod(sp), 4 * math.prod(ks)),
+                             generator=gen, device='cuda').to(dtype)
+            g = torch.randn((1, *sp, 1), generator=gen, device='cuda')
+            kv = lc_cuda._weight_view(k2, True)
+            for name, kern, plain, voxel in keras_fwd_dx_calls(
+                    x, kv, g, 'same', ks):
+                expect = 'voxel' if (ks[0] == 11 and dtype == torch.float32
+                                     and name == 'lc_fwd') else 'keras_row'
+                (a, body), b, c = (body_run(name.split()[0], kern), plain(),
+                                   voxel())
+                torch.cuda.synchronize()
+                checks.check(f'{name} keras {str(dtype)[6:]} x '
+                             f'{list(x.shape)} kernel {ks}',
+                             bit_equal(a, b) and bit_equal(a, c)
+                             and body == expect,
+                             f'equal to plain {bit_equal(a, b)}, to the '
+                             f'one-voxel body {bit_equal(a, c)}, body {body} '
+                             f'({expect} expected)')
 
     # the keras-layout v1 entry point through autograd, at the head's shape
     sp, V = (LC_VOL,) * 3, LC_VOL ** 3
@@ -1353,15 +1408,17 @@ def phase_lc(checks, res):
     k2 = torch.randn((V, 108), generator=gen, device='cuda').bfloat16()
     gf = torch.randn((V, 1), generator=gen, device='cuda')
     xr, kr = xf.clone().requires_grad_(), k2.clone().requires_grad_()
-    names = ('lc_fwd_row', 'lc_dk_row', 'lc_dx_row', 'lc_dk_keras_row')
-    before = {n: _build.launches[n] for n in names}
+    rows = ('lc_fwd_row', 'lc_dk_row', 'lc_dx_row')
+    keras_rows = ('lc_fwd_keras_row', 'lc_dk_keras_row', 'lc_dx_keras_row')
+    before = {n: _build.launches[n] for n in rows + keras_rows}
     y = lc_cuda.lc3d_pallas(xr, kr, sp, LC_KS)
     dx, dk = torch.autograd.grad(y, (xr, kr), gf)
-    ran = {n: _build.launches[n] - before[n] for n in names}
+    ran = {n: _build.launches[n] - before[n] for n in rows + keras_rows}
     checks.check('lc3d_pallas (keras, v1) bodies',
-                 ran == {**dict.fromkeys(names[:3], 0), 'lc_dk_keras_row': 1},
-                 f'{ran} (expected: K8 by its keras row body; K7 and K9 by '
-                 f'their one-voxel bodies, no row-body launch)')
+                 ran == {**dict.fromkeys(rows, 0),
+                         **dict.fromkeys(keras_rows, 1)},
+                 f'{ran} (expected: K7, K8 and K9 once each by their keras '
+                 f'row bodies, no row-body launch)')
     x5, g5 = xf.reshape(1, *sp, 4), gf.reshape(1, *sp, 1)
     kv = lc_cuda._weight_view(k2, True)
     want = (lc_cuda.fwd_plain(x5, kv, LC_KS, 'same').reshape(V, 1),
@@ -1376,29 +1433,79 @@ def phase_lc(checks, res):
         checks.check(f'lc3d_pallas (keras, v1) bf16 [{V}, 4] {what}',
                      bit_equal(a, b), f'max abs err {err:.3g}')
         res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
-    # K8's one-voxel body in the keras layout, the body 'keras_row'
-    # replaced: bit-equal, and timed beside it
+    del want
+    # each keras row body against the one-voxel body it replaced, on the
+    # same inputs: bit-equal (y, dx and dk above ran by keras_row)
     dk1 = torch.empty_like(k2)
     view1 = lc_cuda._weight_view(dk1, True)
     lc_cuda._dk_launch(g5, x5, view1, LC_KS, 'same', 'voxel')
+    y1 = torch.empty_like(y).reshape(x5.shape[:4] + (1,))
+    lc_cuda._fwd_launch(x5, kv, y1, LC_KS, 'same', 'voxel')
+    dx1 = torch.empty_like(x5)
+    lc_cuda._dx_launch(g5, kv, dx1, LC_KS, 'same', True, 'voxel')
     torch.cuda.synchronize()
-    checks.check(f'lc_dk keras [{V}, 4] bf16: keras_row vs one-voxel body',
-                 bit_equal(dk, dk1), 'bit-equal (the dk above ran by '
-                 'keras_row)')
+    for name, a, b in (('lc_fwd', y.detach().reshape(y1.shape), y1),
+                       ('lc_dk', dk, dk1), ('lc_dx', dx.reshape(dx1.shape),
+                                            dx1)):
+        checks.check(f'{name} keras [{V}, 4] bf16: keras_row vs one-voxel '
+                     f'body', bit_equal(a, b), f'bit-equal {bit_equal(a, b)}')
+    del y, dx, dk, y1, dx1, xr, kr
     # the keras-layout kernels' times at the head (Pallas rows 9-11; no
-    # layer routes the step to them), K8's keras row body beside its bytes
-    # bound and the card's write rate for the same bytes
-    times = [f'{name} {time_ms(kern):.4f} ms'
-             for name, kern, _ in lc_calls(x5, k2, g5, True)]
-    voxel_ms = time_ms(lambda: lc_cuda._dk_launch(g5, x5, view1, LC_KS,
-                                                  'same', 'voxel'))
+    # layer routes the step to them): each keras row body beside its
+    # one-voxel body, its bytes bound and the card's read (K7, K9) or
+    # write (K8) rate for the same bytes; the keras row bodies twice
+    y1, dx1 = torch.empty((1, *sp, 1), device='cuda'), torch.empty_like(x5)
+    launches = {
+        'lc_fwd': lambda b: lc_cuda._fwd_launch(x5, kv, y1, LC_KS, 'same', b),
+        'lc_dk': lambda b: lc_cuda._dk_launch(g5, x5, view1, LC_KS, 'same',
+                                              b),
+        'lc_dx': lambda b: lc_cuda._dx_launch(g5, kv, dx1, LC_KS, 'same',
+                                              True, b),
+    }
     write_ms = time_ms(lambda: torch.empty_like(dk1).zero_())
-    b_ms, b_by = bound_ms(*lc_bound('lc_dk', x5, view1, g5))
-    print(f'  keras-layout kernels at [{V}, 4] bf16 (K7, K9 one-voxel '
-          f'bodies; K8 keras_row): ' + ', '.join(times)
-          + f'; K8 one-voxel body {voxel_ms:.4f} ms; K8 bound {b_ms:.4f} ms '
-          f'({b_by}); write probe torch.empty_like(dk).zero_() '
-          f'{write_ms:.4f} ms', flush=True)
+    for name, launch in launches.items():
+        t = [time_ms(lambda: launch(b)) for b in
+             ('keras_row', 'voxel', 'keras_row')]
+        nbytes, flops = lc_bound(name, x5, kv, g5)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        probe = (f'write probe torch.empty_like(dk).zero_() {write_ms:.4f}'
+                 if name == 'lc_dk' else
+                 f'read probe w.sum() {read_ms:.4f}')
+        print(f'  {name} keras [{V}, 4] bf16: keras_row {t[0]:.4f} ms '
+              f'(second reading {t[2]:.4f}), one-voxel body {t[1]:.4f} ms; '
+              f'bound {b_ms:.4f} ms ({b_by}); {probe} ms', flush=True)
+        checks.check(f'{name} keras [{V}, 4] bf16: keras_row faster than '
+                     f'the one-voxel body', max(t[0], t[2]) < t[1],
+                     f'{t[0]:.4f} and {t[2]:.4f} vs {t[1]:.4f} ms')
+
+
+def keras_fwd_dx_calls(x, kv, g, padding, ks=LC_KS):
+    """(name, call, plain call, one-voxel body call) of K7 and of K9 with
+    and without rounded products on x, the keras weights' [O, TC, V] view
+    kv and g."""
+    shape, dtype = tuple(x.shape), x.dtype
+
+    def fwd_voxel():
+        y = torch.empty(g.shape, device='cuda')
+        lc_cuda._fwd_launch(x, kv, y, ks, padding, 'voxel')
+        return y
+
+    def dx_voxel(round_q):
+        dx = torch.empty_like(x)
+        lc_cuda._dx_launch(g, kv, dx, ks, padding, round_q, 'voxel')
+        return dx
+
+    calls = [('lc_fwd', lambda: lc_cuda.fwd_cuda(x, kv, ks, padding),
+              lambda: lc_cuda.fwd_plain(x, kv, ks, padding), fwd_voxel)]
+    for rq in (False, True):
+        calls.append((
+            f'lc_dx{" round_q" if rq else ""}',
+            lambda rq=rq: lc_cuda.dx_cuda(g, kv, ks, padding, shape, dtype,
+                                          rq),
+            lambda rq=rq: lc_cuda.dx_plain(g, kv, ks, padding, shape, dtype,
+                                           rq),
+            lambda rq=rq: dx_voxel(rq)))
+    return calls
 
 
 class EncDecLC(torch.nn.Module):

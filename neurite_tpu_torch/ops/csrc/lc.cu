@@ -29,9 +29,8 @@
 // offsets are int64, since O*TC*V passes 2^31), and K8 and K9 handle four
 // channels of a tap together, so their loads are in flight together.
 //
-// Each kernel has two bodies, picked by the caller (`lc_cuda.fwd_body`,
-// `dk_body`, `dx_body`), and K8 a third for the keras layout (below). With
-// one voxel a thread (`lc_fwd_kernel`,
+// Each kernel has three bodies, picked by the caller (`lc_cuda.fwd_body`,
+// `dk_body`, `dx_body`). With one voxel a thread (`lc_fwd_kernel`,
 // `lc_dk_kernel`, `lc_dx_kernel`: any layout and shape) each weight is a
 // 2-byte (bf16) load or store a thread, 64 bytes a warp: at the config #3
 // head that is 13.8 M load or store instructions a warp for 885 MB, and the
@@ -54,22 +53,36 @@
 //   along W. It loads its own aligned 16 bytes and takes the one element
 //   beyond them from the neighbouring lane's (a warp shuffle; lanes 0 and
 //   31 load it, 2 bytes), masked by its vx where a warp spans two rows.
-// - K8's keras row body (`lc_dk_keras_row_kernel`, 'keras_row': the keras
-//   strides with dk 16-byte aligned, on the row bodies' head conditions
-//   but for the layout: B = 1, C = 4, O = 1, ky and kx <= 3, x aligned to
-//   its voxels; every other keras shape takes the one-voxel body). In the
-//   keras layout a voxel's 108 weights at the head are one 216-byte run, so
-//   the one-voxel body's 2-byte stores put neighbouring threads 216 bytes
-//   apart: every warp store touches 32 sectors for 64 useful bytes. dk
-//   [V, TC, O] is one contiguous run: a block of VB voxels (one a thread)
-//   computes its [VB, TC] part into shared memory, four channels of a tap
-//   as one load of x and one 8- or 16-byte shared store, then streams it
-//   out in 16-byte chunks, neighbouring threads on neighbouring chunks. The
-//   shared-memory traffic (each byte stored and loaded once) sits beside
-//   the 884.7 MB written. Measured at the head, bf16 (NVIDIA H100 80GB
-//   HBM3, 700 W; `chip_smoke.py` phase 10): 0.3290 ms against the
-//   one-voxel body's 8.3317, a 0.2788 ms bytes bound and 0.2685 ms for
-//   `zero_()` of the same bytes.
+// The keras row bodies ('keras_row') take the keras layout on the row
+// bodies' head conditions but for the layout: the keras strides with a
+// 16-byte aligned base, B = 1, C = 4, O = 1, ky and kx <= 3, x aligned to
+// its voxels (K9: 'same' padding; every other keras shape takes the
+// one-voxel body). In the keras layout a voxel's 108 weights at the head
+// are one 216-byte run, so the one-voxel bodies' 2-byte accesses put
+// neighbouring threads 216 bytes apart: every warp access touches 32
+// sectors for 64 useful bytes. Each keras row body reads or writes those
+// runs through shared memory instead:
+// - K8 (`lc_dk_keras_row_kernel`): dk [V, TC, O] is one contiguous run; a
+//   block of VB voxels (one a thread) computes its [VB, TC] part into
+//   shared memory, four channels of a tap as one load of x and one 8- or
+//   16-byte shared store, then streams it out in 16-byte chunks,
+//   neighbouring threads on neighbouring chunks.
+// - K7 (`lc_fwd_keras_row_kernel`), K8's in reverse: a block loads its
+//   voxels' [VB, TC] run into shared memory by 16-byte streaming loads,
+//   then each thread sums its voxel from there, a tap's four weights one
+//   8- or 16-byte shared load.
+// - K9 (`lc_dx_keras_row_kernel`): an input voxel takes weights from 27
+//   output voxels, so a block owns a 16 x 8 tile of input voxels of one
+//   z-plane and, per tz, stages the tz part of each output row its taps
+//   reach (the ky * kx tap quads, 72 contiguous bytes of the run at the
+//   head), lanes on consecutive quads; the other two parts of a row are
+//   read by the blocks one plane before and after, which find them in L2.
+// Measured at the head, bf16 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py`
+// phase 10): K8's keras row body 0.3290 ms against its one-voxel body's
+// 8.3317, a 0.2788 ms bytes bound and 0.2685 ms for `zero_()` of the same
+// bytes; K7's 0.3206 against 2.0134 and K9's 0.4165 against 0.9549
+// (products rounded to bf16), both against a 0.2755 ms bound and 0.2929 ms
+// for `w.sum()`; K9's designs side by side in `lc_keras_layouts.py`.
 // The bytes each moves at the head: 884.7 MB of weights (K8 writes all of
 // them; K7 and K9 read the 873.7 MB whose taps reach the volume, plus the
 // few rows that a thread's 16 bytes share with them), 32.8 MB of x or dx
@@ -231,6 +244,12 @@ struct Quad<bf16> {
   __device__ static uint2 load(const bf16* p) {
     return __ldg(reinterpret_cast<const uint2*>(p));
   }
+  __device__ static uint2 lds(const bf16* p) {  // from shared memory
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static uint2 ldcg(const bf16* p) {  // kept in L2, not L1
+    return __ldcg(reinterpret_cast<const uint2*>(p));
+  }
   __device__ static float chan(uint2 q, int c) {
     const unsigned w = c < 2 ? q.x : q.y;
     return __uint_as_float(c & 1 ? w & 0xffff0000u : w << 16);
@@ -241,6 +260,12 @@ struct Quad<float> {
   typedef float4 type;
   __device__ static float4 load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float4 lds(const float* p) {  // from shared memory
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ static float4 ldcg(const float* p) {  // kept in L2, not L1
+    return __ldcg(reinterpret_cast<const float4*>(p));
   }
   __device__ static float chan(float4 q, int c) {
     return c == 0 ? q.x : (c == 1 ? q.y : (c == 2 ? q.z : q.w));
@@ -545,6 +570,222 @@ lc_fwd_row_kernel(const TX* __restrict__ x, const TK* __restrict__ k,
   }
 }
 
+// n elements of a 16-byte aligned run from src into the shared tile, by the
+// block's threads: thread i loads the 16-byte chunks i, i + blockDim.x, ...
+// by streaming loads (read once), kStage of them issued before any is
+// stored, and the tail element by element.
+template <typename T>
+__device__ __forceinline__ void stage_run(const T* __restrict__ src, T* tile,
+                                          int n) {
+  constexpr int NE = 16 / (int)sizeof(T);
+  constexpr int kStage = 8;
+  const int nc = n / NE, step = blockDim.x;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* t = reinterpret_cast<uint4*>(tile);
+  for (int i0 = threadIdx.x; i0 < nc; i0 += kStage * step) {
+    uint4 r[kStage];
+#pragma unroll
+    for (int j = 0; j < kStage; ++j)
+      if (i0 + j * step < nc) r[j] = __ldcs(s + i0 + j * step);
+#pragma unroll
+    for (int j = 0; j < kStage; ++j)
+      if (i0 + j * step < nc) t[i0 + j * step] = r[j];
+  }
+  for (int i = nc * NE + threadIdx.x; i < n; i += step) tile[i] = src[i];
+}
+
+// The K7 keras row body (`lc_cuda.fwd_body` -> 'keras_row', on K8's keras
+// row conditions): K8's keras row body in reverse. The keras weights
+// [V, TC, O] (O = 1) are one contiguous run and an output voxel reads only
+// its own TC of them, so a block of VB consecutive output voxels (one a
+// thread) stages its [VB, TC] run in shared memory (`stage_run`: 16-byte
+// streaming loads, neighbouring threads on neighbouring chunks), then each
+// thread sums its voxel in the one-voxel body's order (taps, then channels,
+// from -0): a tap's four weights one 8- or 16-byte shared load, x's four
+// channels one load through L1/L2 (the ky * kx of a tz plane issued
+// together), a tap in the padding multiplying 0. The tile is not padded: a
+// thread's run is 8 (bf16) or 16 (f32) bytes a tap, 216 or 432 at the head
+// (54 or 108 words, 22 or 12 mod 32), so the 8-byte loads of a half-warp, or
+// the 16-byte loads of a quarter-warp, start on distinct banks. y is one
+// float a voxel.
+template <typename TX, typename TK>
+__global__ void __launch_bounds__(128)
+lc_fwd_keras_row_kernel(const TX* __restrict__ x, const TK* __restrict__ k,
+                        float* __restrict__ y, Geo g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TK* tile = reinterpret_cast<TK*>(smem);
+  const int Wo = (int)g.Wo, Ho = (int)g.Ho, Vo = Wo * Ho * (int)g.Do;
+  const int D = (int)g.D, H = (int)g.H, W = (int)g.W;
+  const int ky = (int)g.ky, kx = (int)g.kx;
+  const int TC = (int)g.kz * ky * kx * kChans;
+  const int VB = blockDim.x;
+  const int v0 = blockIdx.x * VB;
+  const int nv = min(VB, Vo - v0);
+  stage_run(k + (int64_t)v0 * TC, tile, nv * TC);
+  __syncthreads();
+  if ((int)threadIdx.x >= nv) return;
+  typedef Quad<TX> Q;
+  typedef Quad<TK> K;
+  const int v = v0 + threadIdx.x;
+  const int wo = v % Wo, ho = (v / Wo) % Ho, zo = v / (Wo * Ho);
+  const TK* tv = tile + threadIdx.x * TC;
+  float acc = -0.f;  // -0 + p == p for every p: the first term starts it
+  for (int tz = 0; tz < (int)g.kz; ++tz) {
+    const int zi = zo + tz - (int)g.pz;
+    const bool okz = zi >= 0 && zi < D;
+    typename Q::type q[kRowTaps][kRowTaps];
+#pragma unroll
+    for (int ty = 0; ty < kRowTaps; ++ty) {
+      const int yi = ho + ty - (int)g.py;
+#pragma unroll
+      for (int tx = 0; tx < kRowTaps; ++tx) {
+        const int xi = wo + tx - (int)g.px;
+        const bool ok = okz && ty < ky && tx < kx && yi >= 0 && yi < H &&
+                        xi >= 0 && xi < W;
+        q[ty][tx] = ok ? Q::load(x + ((int64_t)(zi * H + yi) * W + xi) *
+                                         kChans)
+                       : typename Q::type{};
+      }
+    }
+#pragma unroll
+    for (int ty = 0; ty < kRowTaps; ++ty) {
+#pragma unroll
+      for (int tx = 0; tx < kRowTaps; ++tx) {
+        if (ty < ky && tx < kx) {
+          const typename K::type w =
+              K::lds(tv + ((tz * ky + ty) * kx + tx) * kChans);
+#pragma unroll
+          for (int c = 0; c < kChans; ++c)
+            acc = __fadd_rn(acc, __fmul_rn(K::chan(w, c),
+                                           Q::chan(q[ty][tx], c)));
+        }
+      }
+    }
+  }
+  y[v] = acc;
+}
+
+// The K9 keras row body (`lc_cuda.dx_body` -> 'keras_row': K7's keras row
+// conditions with 'same' padding). An input voxel u takes weights from the
+// kz * ky * kx output voxels v = u - (t - p), and in the keras layout a
+// row's TC weights are one run, [tz][ty][tx][c]: for one tz the ky * kx
+// tap quads of a row are contiguous (72 bytes in bf16 at the head). So a
+// block owns a BY x BX tile of input voxels of one z-plane (one a thread)
+// and walks tz: it stages the (BY + ky - 1) x (BX + kx - 1) output rows of
+// plane uz - tz + pz that the tile's taps reach, of each row the tz part of
+// its run (lanes on consecutive tap quads of 8 or 16 bytes, by `__ldcg`:
+// kept in L2, not L1) and g there; then each thread adds that plane's
+// taps from shared memory, in the one-voxel body's order, a tap in the
+// volume only; plane tz + 1's loads are issued before plane tz's sums, so
+// they overlap. The sum starts at +0 (carried over tz in registers), each
+// product rounded to the weights' dtype with round_q, and dx is rounded
+// once, four channels by one 8- or 16-byte store. Each run part is read by
+// one block, apart from the tile's halo; the other two parts of a row (the
+// neighbouring planes' tz) are read by the blocks a plane before and after
+// it in launch order, which find its sectors in L2. A thread keeps one
+// plane offset a quad (`kTileQuads`): 80 registers in bf16, where two
+// indices a quad took 122 and ran 1.16 times as long; rows
+// 72 (bf16) or 144 (f32) bytes apart put a half-warp's 8-byte (a quarter-
+// warp's 16-byte) shared loads on distinct banks. Why a tile and not a run
+// of consecutive input voxels: such a block needs a separate kx * C chunk
+// (24 bytes) of each row for each (tz, ty), which uses half of each 32-byte
+// sector and spreads its loads over nine places; at the head it ran about
+// 1.6 times as long (`lc_keras_layouts.py`).
+constexpr int kTileX = 16, kTileY = 8;  // the tile of input voxels
+
+template <typename TX, typename TK, int BX = kTileX, int BY = kTileY>
+__global__ void __launch_bounds__(BX * BY)
+lc_dx_keras_row_kernel(const float* __restrict__ gr, const TK* __restrict__ k,
+                       TX* __restrict__ dx, Geo g, int round_q) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  typedef Quad<TK> K;
+  typedef typename K::type KQ;
+  constexpr int NB = BX * BY;
+  // tap quads and rows a thread stages a plane, at ky = kx = 3
+  constexpr int kTileQuads = ((BX + 2) * (BY + 2) * 9 + NB - 1) / NB;
+  constexpr int kTileRows = ((BX + 2) * (BY + 2) + NB - 1) / NB;
+  const int W = (int)g.W, H = (int)g.H, D = (int)g.D;
+  const int kz = (int)g.kz, ky = (int)g.ky, kx = (int)g.kx;
+  const int pz = (int)g.pz, py = (int)g.py, px = (int)g.px;
+  const int NQ = ky * kx, TC = kz * NQ * kChans;
+  const int HX = BX + kx - 1, NRW = HX * (BY + ky - 1);
+  const int nbx = (W + BX - 1) / BX, nby = (H + BY - 1) / BY;
+  const int bx = blockIdx.x % nbx, by = (blockIdx.x / nbx) % nby;
+  const int uz = blockIdx.x / (nbx * nby);
+  const int x0 = bx * BX, y0 = by * BY, tid = threadIdx.x;
+  KQ* wt = reinterpret_cast<KQ*>(smem);                 // [NRW][NQ]
+  float* gt = reinterpret_cast<float*>(wt + NRW * NQ);  // [NRW]
+  // quad p = tid + j NB is halo row p / NQ, tap p % NQ: its element offset
+  // in a plane's weights, -1 outside the volume or past the halo (the
+  // caller keeps H W TC < 2^31); and row tid + h NB's voxel in a plane
+  int poff[kTileQuads], grow[kTileRows];
+#pragma unroll
+  for (int j = 0; j < kTileQuads; ++j) {
+    const int p = tid + j * NB, r = p / NQ;
+    const int y = y0 - (ky - 1) + py + r / HX, x = x0 - (kx - 1) + px + r % HX;
+    poff[j] = p < NRW * NQ && y >= 0 && y < H && x >= 0 && x < W
+                  ? (y * W + x) * TC + (p % NQ) * kChans : -1;
+  }
+#pragma unroll
+  for (int h = 0; h < kTileRows; ++h) {
+    const int r = tid + h * NB;
+    const int y = y0 - (ky - 1) + py + r / HX, x = x0 - (kx - 1) + px + r % HX;
+    grow[h] = r < NRW && y >= 0 && y < H && x >= 0 && x < W ? y * W + x : -1;
+  }
+  const int lx = tid % BX, ly = tid / BX, ux = x0 + lx, uy = y0 + ly;
+  float acc[kChans];
+#pragma unroll
+  for (int c = 0; c < kChans; ++c) acc[c] = 0.f;
+  // the taps whose plane vz = uz - tz + pz lies inside: tz in [t0, t1]
+  const int t0 = max(0, uz + pz - D + 1), t1 = min(kz - 1, uz + pz);
+  KQ q[kTileQuads];
+  float gq[kTileRows];
+  auto load = [&](int tz) {
+    const int64_t plane = (int64_t)(uz - tz + pz) * H * W;
+    const TK* run = k + plane * TC + tz * NQ * kChans;
+#pragma unroll
+    for (int j = 0; j < kTileQuads; ++j)
+      q[j] = poff[j] >= 0 ? K::ldcg(run + poff[j]) : KQ{};
+#pragma unroll
+    for (int h = 0; h < kTileRows; ++h)
+      gq[h] = grow[h] >= 0 ? gr[plane + grow[h]] : 0.f;
+  };
+  if (t0 <= t1) load(t0);
+  for (int tz = t0; tz <= t1; ++tz) {
+    __syncthreads();  // the previous plane's sums are done
+#pragma unroll
+    for (int j = 0; j < kTileQuads; ++j)
+      if (tid + j * NB < NRW * NQ) wt[tid + j * NB] = q[j];
+#pragma unroll
+    for (int h = 0; h < kTileRows; ++h)
+      if (tid + h * NB < NRW) gt[tid + h * NB] = gq[h];
+    __syncthreads();
+    if (tz < t1) load(tz + 1);
+#pragma unroll
+    for (int ty = 0; ty < kRowTaps; ++ty) {
+      const int vy = uy - ty + py;
+#pragma unroll
+      for (int tx = 0; tx < kRowTaps; ++tx) {
+        const int vx = ux - tx + px;
+        if (ty < ky && tx < kx && vy >= 0 && vy < H && vx >= 0 && vx < W) {
+          const int r = (ly + ky - 1 - ty) * HX + lx + kx - 1 - tx;
+          const KQ w = wt[r * NQ + ty * kx + tx];
+          const float gv = gt[r];
+#pragma unroll
+          for (int c = 0; c < kChans; ++c) {
+            float p = __fmul_rn(K::chan(w, c), gv);
+            if (round_q) p = to_f32(from_f32<TK>(p));
+            acc[c] = __fadd_rn(acc[c], p);  // -0 + p == p: the one-voxel m
+          }
+        }
+      }
+    }
+  }
+  if (ux < W && uy < H)
+    store_quad(dx + ((int64_t)uz * H * W + (int64_t)uy * W + ux) * kChans,
+               acc);
+}
+
 // The element beyond a lane's aligned 16 bytes at ux of one row that tap
 // shift d (vx = ux + j + d) needs, where the neighbouring lane that holds it
 // is in another warp: lane 31 for d = 1, lane 0 for d = -1 (a 2-byte load,
@@ -770,26 +1011,11 @@ Geo make_geo(const int64_t* a) {
 
 constexpr int kThreads = 256;
 
-// Shared memory a block of the K8 keras row body may stage (no opt-in).
+// Shared memory a block of a keras row body may stage (no opt-in).
 constexpr int64_t kKerasTileBytes = 48 * 1024;
 
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
-// row: the row body, whose conditions (`lc_cuda.fwd_body`, `dk_body`,
-// `dx_body`) the caller has checked; else the one-voxel body.
-template <typename TX, typename TK>
-void fwd(const void* x, const void* k, float* y, const Geo& g, int row,
-         cudaStream_t s) {
-  const int64_t Vo = g.Do * g.Ho * g.Wo;
-  if (row)
-    lc_fwd_row_kernel<TX, TK>
-        <<<blocks_for(Vo / row_voxels<TK>()), kThreads, 0, s>>>(
-            (const TX*)x, (const TK*)k, y, g);
-  else
-    lc_fwd_kernel<TX, TK><<<dim3(blocks_for(Vo), (unsigned)g.B), kThreads, 0,
-                            s>>>((const TX*)x, (const TK*)k, y, g);
 }
 
 // Voxels a block of the keras row body owns: the most of 128, 64 and 32
@@ -800,6 +1026,28 @@ int keras_tile_voxels(const Geo& g, int elem) {
   int vb = 128;
   while (vb > 32 && vb * bytes > kKerasTileBytes) vb /= 2;
   return vb;
+}
+
+// body: 0 the one-voxel body, 1 the row body, 2 the keras row body (each
+// on its `lc_cuda.fwd_body` conditions).
+template <typename TX, typename TK>
+void fwd(const void* x, const void* k, float* y, const Geo& g, int body,
+         cudaStream_t s) {
+  const int64_t Vo = g.Do * g.Ho * g.Wo;
+  if (body == 2) {
+    const int vb = keras_tile_voxels(g, (int)sizeof(TK));
+    const size_t smem = (size_t)vb * g.kz * g.ky * g.kx * g.C * sizeof(TK);
+    lc_fwd_keras_row_kernel<TX, TK><<<(unsigned)((Vo + vb - 1) / vb), vb,
+                                      smem, s>>>((const TX*)x, (const TK*)k,
+                                                 y, g);
+  } else if (body == 1) {
+    lc_fwd_row_kernel<TX, TK>
+        <<<blocks_for(Vo / row_voxels<TK>()), kThreads, 0, s>>>(
+            (const TX*)x, (const TK*)k, y, g);
+  } else {
+    lc_fwd_kernel<TX, TK><<<dim3(blocks_for(Vo), (unsigned)g.B), kThreads, 0,
+                            s>>>((const TX*)x, (const TK*)k, y, g);
+  }
 }
 
 // body: 0 the one-voxel body, 1 the row body, 2 the keras row body (each
@@ -824,15 +1072,39 @@ void dkk(const float* gr, const void* x, void* dk, const Geo& g, int body,
   }
 }
 
+// Shared memory of a K9 keras row block: a plane's halo rows, ky * kx tap
+// quads and one g each.
+template <typename TK, int BX = kTileX, int BY = kTileY>
+size_t keras_dx_smem(const Geo& g) {
+  return (size_t)(BX + g.kx - 1) * (BY + g.ky - 1) *
+         (g.ky * g.kx * g.C * sizeof(TK) + sizeof(float));
+}
+
+template <typename TX, typename TK, int BX = kTileX, int BY = kTileY>
+void dx_keras_row(const float* gr, const void* k, void* dx, const Geo& g,
+                  int round_q, cudaStream_t s) {
+  const unsigned nb =
+      (unsigned)(((g.W + BX - 1) / BX) * ((g.H + BY - 1) / BY) * g.D);
+  lc_dx_keras_row_kernel<TX, TK, BX, BY>
+      <<<nb, BX * BY, keras_dx_smem<TK, BX, BY>(g), s>>>(
+          gr, (const TK*)k, (TX*)dx, g, round_q);
+}
+
+// body: 0 the one-voxel body, 1 the row body, 2 the keras row body (each
+// on its `lc_cuda.dx_body` conditions).
 template <typename TX, typename TK>
 void dxk(const float* gr, const void* k, void* dx, const Geo& g, int round_q,
-         int row, cudaStream_t s) {
+         int body, cudaStream_t s) {
   const int64_t V = g.D * g.H * g.W;
+  if (body == 2) {
+    dx_keras_row<TX, TK>(gr, k, dx, g, round_q, s);
+    return;
+  }
   const unsigned nb = blocks_for(V / row_voxels<TK>());
-  if (row && g.px == 1)
+  if (body == 1 && g.px == 1)
     lc_dx_row_kernel<TX, TK, 1><<<nb, kThreads, 0, s>>>(gr, (const TK*)k,
                                                        (TX*)dx, g, round_q);
-  else if (row)
+  else if (body == 1)
     lc_dx_row_kernel<TX, TK, 0><<<nb, kThreads, 0, s>>>(gr, (const TK*)k,
                                                        (TX*)dx, g, round_q);
   else
@@ -846,19 +1118,23 @@ extern "C" {
 
 // geo: the 18 int64 fields of Geo, in order. x_bf16 / k_bf16 pick the
 // dtypes of x and of the weights (bfloat16 when 1, float32 when 0). The
-// caller keeps each volume under 2^31 voxels and B under 65536. row picks
-// the row body (1: B = 1, C = 4, kx <= 3, Wo % (16 bytes of weights) == 0,
-// the transposed layout with 16-byte aligned rows and base, x aligned to
-// its 4-channel voxels; K9 also 'same' padding) or the one-voxel body (0:
-// any layout and shape).
+// caller keeps each volume under 2^31 voxels and B under 65536. body picks
+// the body, on the conditions `lc_cuda.fwd_body` and `dx_body` check: 0 the
+// one-voxel body (any layout and shape), 1 the row body (B = 1, C = 4,
+// kx <= 3, Wo % (16 bytes of weights) == 0, the transposed layout with
+// 16-byte aligned rows and base, x aligned to its 4-channel voxels; K9 also
+// 'same' padding), 2 the keras row body (the keras strides with a 16-byte
+// aligned base, B = 1, C = 4, O = 1, ky and kx <= 3; K7: x aligned to its
+// voxels and a 32-voxel tile within 48 KB; K9: 'same' padding and a
+// z-plane's H W TC weights within 32-bit offsets).
 int neurite_lc_fwd(const void* x, const void* k, float* y, const int64_t* geo,
-                   int x_bf16, int k_bf16, int row, cudaStream_t stream) {
+                   int x_bf16, int k_bf16, int body, cudaStream_t stream) {
   const Geo g = make_geo(geo);
   if (g.B * g.Do * g.Ho * g.Wo == 0) return 0;
-  if (x_bf16 && k_bf16) fwd<bf16, bf16>(x, k, y, g, row, stream);
-  else if (x_bf16) fwd<bf16, float>(x, k, y, g, row, stream);
-  else if (k_bf16) fwd<float, bf16>(x, k, y, g, row, stream);
-  else fwd<float, float>(x, k, y, g, row, stream);
+  if (x_bf16 && k_bf16) fwd<bf16, bf16>(x, k, y, g, body, stream);
+  else if (x_bf16) fwd<bf16, float>(x, k, y, g, body, stream);
+  else if (k_bf16) fwd<float, bf16>(x, k, y, g, body, stream);
+  else fwd<float, float>(x, k, y, g, body, stream);
   return (int)cudaGetLastError();
 }
 
@@ -877,14 +1153,14 @@ int neurite_lc_dk(const float* gr, const void* x, void* dk, const int64_t* geo,
 }
 
 int neurite_lc_dx(const float* gr, const void* k, void* dx, const int64_t* geo,
-                  int x_bf16, int k_bf16, int round_q, int row,
+                  int x_bf16, int k_bf16, int round_q, int body,
                   cudaStream_t stream) {
   const Geo g = make_geo(geo);
   if (g.B * g.D * g.H * g.W == 0) return 0;
-  if (x_bf16 && k_bf16) dxk<bf16, bf16>(gr, k, dx, g, round_q, row, stream);
-  else if (x_bf16) dxk<bf16, float>(gr, k, dx, g, round_q, row, stream);
-  else if (k_bf16) dxk<float, bf16>(gr, k, dx, g, round_q, row, stream);
-  else dxk<float, float>(gr, k, dx, g, round_q, row, stream);
+  if (x_bf16 && k_bf16) dxk<bf16, bf16>(gr, k, dx, g, round_q, body, stream);
+  else if (x_bf16) dxk<bf16, float>(gr, k, dx, g, round_q, body, stream);
+  else if (k_bf16) dxk<float, bf16>(gr, k, dx, g, round_q, body, stream);
+  else dxk<float, float>(gr, k, dx, g, round_q, body, stream);
   return (int)cudaGetLastError();
 }
 

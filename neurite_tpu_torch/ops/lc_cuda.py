@@ -11,9 +11,11 @@ Each op takes its plain version (`ops/lc_tap.py`) for a CPU tensor and
 launches its kernel for a CUDA tensor, raising on what the kernel does not
 take. Every launch adds one to `_build.launches['lc_fwd' | 'lc_dk' |
 'lc_dx']`; a launch that takes its kernel's row body (`fwd_body`,
-`dk_body`, `dx_body`) also adds one to `_build.launches['lc_fwd_row' |
-'lc_dk_row' | 'lc_dx_row']`, and one of K8's keras row body to
-`_build.launches['lc_dk_keras_row']`. The domain (`supported`) is 3-D,
+`dk_body`, `dx_body`: the transposed layout at the config #3 head) also
+adds one to `_build.launches['lc_fwd_row' | 'lc_dk_row' | 'lc_dx_row']`,
+and one by its keras row body (the keras layout at the head's shapes: the
+v1 path, `lc3d_pallas`) to `_build.launches['lc_fwd_keras_row' |
+'lc_dk_keras_row' | 'lc_dx_keras_row']`. The domain (`supported`) is 3-D,
 stride 1, 'same' or 'valid', any filters and channels, float32 or
 bfloat16: the TPU gates of `pallas_lc2.supported` (H % 8, the 512-term
 unroll cap, VMEM) have no counterpart on the card. `interpret` is
@@ -101,16 +103,24 @@ def fwd_cuda(x, kview, kernel_size, padding):
     out = lc_tap._out_shape(x.shape[1:4], kernel_size, padding)
     y = torch.empty((x.shape[0], *out, kview.shape[0]), dtype=torch.float32,
                     device=x.device)
+    _fwd_launch(x, kview, y, kernel_size, padding,
+                fwd_body(x, kview, kernel_size, padding))
+    return y
+
+
+_BODY = {'voxel': 0, 'row': 1, 'keras_row': 2}   # the launchers' body codes
+
+
+def _fwd_launch(x, kview, y, kernel_size, padding, body):
+    """Launch K7's `body` on checked tensors, writing y; `body` must hold
+    `fwd_body`'s conditions for them."""
     geo, xb, kb = _launch_args(tuple(x.shape), kview, kernel_size, padding,
                                x.dtype)
-    body = fwd_body(x, kview, kernel_size, padding)
     lib = _build.library()
     with torch.cuda.device(x.device):
         lib.call('neurite_lc_fwd', x.data_ptr(), kview.data_ptr(),
-                 y.data_ptr(), geo, xb, kb, int(body == 'row'),
-                 _build.stream_of(x))
+                 y.data_ptr(), geo, xb, kb, _BODY[body], _build.stream_of(x))
     _count('lc_fwd', body)
-    return y
 
 
 def _count(name, body):
@@ -149,20 +159,35 @@ KERAS_TILE_BYTES = 48 * 1024   # shared memory of a 'keras_row' block
 KERAS_TILE_VOXELS = 32         # the fewest voxels a 'keras_row' block owns
 
 
-def _keras_row(x, view, kernel_size):
-    """K8's keras row conditions: the weights' [O, TC, V] view is the keras
-    layout [V, TC, O] contiguous with its base 16-byte aligned, at the
-    config #3 head's batch 1, 4 channels, 1 filter and a kernel at most 3
-    wide along H and W, x aligned to its 4-channel voxels, and a [32, TC]
-    tile fits the block's 48 KB of shared memory."""
-    o, tc, _ = view.shape
+def _keras_head(x_shape, view, kernel_size):
+    """The keras row bodies' layout and shape: the weights' [O, TC, V] view
+    is the keras layout [V, TC, O] contiguous with its base 16-byte
+    aligned, at the config #3 head's batch 1, 4 channels, 1 filter and a
+    kernel at most 3 wide along H and W."""
+    o = view.shape[0]
     return (view.permute(2, 1, 0).is_contiguous()
             and view.data_ptr() % 16 == 0
-            and x.shape[0] == 1 and x.shape[-1] == 4 and o == 1
-            and max(kernel_size[1:]) <= 3
+            and x_shape[0] == 1 and x_shape[-1] == 4 and o == 1
+            and max(kernel_size[1:]) <= 3)
+
+
+def _keras_row(x, view, kernel_size):
+    """K8's and K7's keras row conditions: `_keras_head`, x aligned to its
+    4-channel voxels, and a [32, TC] tile of the voxels' weight runs fits
+    the block's 48 KB of shared memory."""
+    tc = view.shape[1]
+    return (_keras_head(tuple(x.shape), view, kernel_size)
             and x.data_ptr() % (4 * x.element_size()) == 0
             and KERAS_TILE_VOXELS * tc * view.element_size()
             <= KERAS_TILE_BYTES)
+
+
+def _keras_dx_row(x_shape, view, kernel_size, padding):
+    """K9's keras row conditions: `_keras_head` with 'same' padding, and a
+    z-plane's weights H * W * TC within 32-bit offsets."""
+    return (padding == 'same'
+            and _keras_head(tuple(x_shape), view, kernel_size)
+            and x_shape[2] * x_shape[3] * view.shape[1] < 2 ** 31)
 
 
 def dk_body(x, view, kernel_size, padding):
@@ -186,13 +211,18 @@ def fwd_body(x, view, kernel_size, padding):
     `view` for x [B, D, H, W, C]: 'row' on K8's row conditions (`_row`),
     where each (tap, channel, filter) row of a thread's voxels is one
     aligned 16-byte load and its taps' input voxels are loaded once per
-    (tz, ty); else 'voxel', one voxel a thread and a 2-byte load a weight
-    (the keras layout too).
-    Both read the weights whose taps reach the volume once (873.7 MB at
+    (tz, ty); 'keras_row' on K8's keras row conditions (`_keras_row`),
+    where a block stages its voxels' contiguous [VB, TC] weight run in
+    shared memory by 16-byte loads and each thread sums its voxel from
+    there; else 'voxel', one voxel a thread and a 2-byte load a weight.
+    Each reads the weights whose taps reach the volume once (873.7 MB at
     the config #3 head, bf16), where the row body runs 0.31 ms and the
-    one-voxel body 0.79 (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py`
-    phase 10)."""
-    return 'row' if _row(x, view, kernel_size, padding) else 'voxel'
+    one-voxel body 0.79, and in the keras layout the keras row body 0.32
+    and the one-voxel body 2.01 (NVIDIA H100 80GB HBM3, 700 W;
+    `chip_smoke.py` phase 10)."""
+    if _row(x, view, kernel_size, padding):
+        return 'row'
+    return 'keras_row' if _keras_row(x, view, kernel_size) else 'voxel'
 
 
 def dx_body(x_shape, view, kernel_size, padding):
@@ -202,14 +232,23 @@ def dx_body(x_shape, view, kernel_size, padding):
     bytes of weights (8 bfloat16 or 4 float32) in one row and reads each
     (tap, channel, filter) row with one aligned 16-byte load, the one
     element beyond it for the taps off the centre along W coming from the
-    neighbouring lane; else 'voxel',
-    one voxel a thread and a 2-byte load a weight. Both read the weights
-    whose taps reach the volume once (873.7 MB at the config #3 head,
-    bf16), where the row body runs 0.36 ms and the one-voxel body 0.85
-    (NVIDIA H100 80GB HBM3, 700 W; `chip_smoke.py` phase 10)."""
+    neighbouring lane; 'keras_row' on `_keras_dx_row`'s conditions, where
+    a block owns a 16 x 8 tile of input voxels of one z-plane and, per tz,
+    stages the ky * kx tap quads of that tz (one contiguous part of each
+    keras run) of every output row the tile's taps reach, and g there, in
+    shared memory; else 'voxel', one voxel a thread and a 2-byte load a
+    weight.
+    Each reads the weights whose taps reach the volume once (873.7 MB at
+    the config #3 head, bf16), where the row body runs 0.36 ms and the
+    one-voxel body 0.85, and in the keras layout the keras row body 0.42
+    and the one-voxel body 0.95 (NVIDIA H100 80GB HBM3, 700 W;
+    `chip_smoke.py` phase 10)."""
     row = padding == 'same' and _rows_of_16_bytes(
         tuple(x_shape), view, kernel_size, x_shape[3])
-    return 'row' if row else 'voxel'
+    if row:
+        return 'row'
+    return ('keras_row' if _keras_dx_row(x_shape, view, kernel_size, padding)
+            else 'voxel')
 
 
 def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
@@ -235,9 +274,6 @@ def dk_cuda(g, x, kernel_size, padding, dtype, keras=False):
     return dk
 
 
-_DK_BODY = {'voxel': 0, 'row': 1, 'keras_row': 2}
-
-
 def _dk_launch(g, x, view, kernel_size, padding, body):
     """Launch K8's `body` on checked tensors, writing dk's [O, TC, V] view
     `view`; `body` must hold `dk_body`'s conditions for it."""
@@ -246,7 +282,7 @@ def _dk_launch(g, x, view, kernel_size, padding, body):
     lib = _build.library()
     with torch.cuda.device(x.device):
         lib.call('neurite_lc_dk', g.data_ptr(), x.data_ptr(), view.data_ptr(),
-                 geo, xb, kb, _DK_BODY[body], _build.stream_of(x))
+                 geo, xb, kb, _BODY[body], _build.stream_of(x))
     _count('lc_dk', body)
 
 
@@ -263,16 +299,22 @@ def dx_cuda(g, kview, kernel_size, padding, x_shape, x_dtype, round_q=False):
     out = lc_tap._out_shape(x_shape[1:4], kernel_size, padding)
     if tuple(g.shape) != (x_shape[0], *out, kview.shape[0]):
         raise ValueError(f'g {tuple(g.shape)} does not fit x {x_shape}')
-    geo, xb, kb = _launch_args(tuple(x_shape), kview, kernel_size, padding,
-                               x_dtype)
-    body = dx_body(tuple(x_shape), kview, kernel_size, padding)
+    _dx_launch(g, kview, dx, kernel_size, padding, round_q,
+               dx_body(tuple(x_shape), kview, kernel_size, padding))
+    return dx
+
+
+def _dx_launch(g, kview, dx, kernel_size, padding, round_q, body):
+    """Launch K9's `body` on checked tensors, writing dx; `body` must hold
+    `dx_body`'s conditions for them."""
+    geo, xb, kb = _launch_args(tuple(dx.shape), kview, kernel_size, padding,
+                               dx.dtype)
     lib = _build.library()
     with torch.cuda.device(g.device):
         lib.call('neurite_lc_dx', g.data_ptr(), kview.data_ptr(),
-                 dx.data_ptr(), geo, xb, kb, int(bool(round_q)),
-                 int(body == 'row'), _build.stream_of(g))
+                 dx.data_ptr(), geo, xb, kb, int(bool(round_q)), _BODY[body],
+                 _build.stream_of(g))
     _count('lc_dx', body)
-    return dx
 
 
 # the plain versions, with the kernels' signatures

@@ -283,13 +283,13 @@ DK_BODIES = {   # name: (x_shape, O, dtype, keras, padding, ks,
                    (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'b3_o2_f32': ((3, 32, 32, 32, 4), 2, torch.float32, False, 'same',
                   (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    # the keras layout: K8 by its keras row body at the head's B = 1,
-    # C = 4, O = 1 and ky, kx <= 3, else by its one-voxel body; K7 and K9
-    # by their one-voxel bodies
+    # the keras layout: K8, K7 and K9 by their keras row bodies at the
+    # head's B = 1, C = 4, O = 1 and ky, kx <= 3 (K9 'same' only), else by
+    # their one-voxel bodies
     'keras_head': ((1, 160, 160, 160, 4), 1, torch.bfloat16, True, 'same',
-                   (3, 3, 3), ('keras_row', 'voxel', 'voxel')),
+                   (3, 3, 3), ('keras_row', 'keras_row', 'keras_row')),
     'keras_valid_f32': ((1, 6, 7, 9, 4), 1, torch.float32, True, 'valid',
-                        (3, 3, 3), ('keras_row', 'voxel', 'voxel')),
+                        (3, 3, 3), ('keras_row', 'keras_row', 'voxel')),
     'keras_b3_o2': ((3, 32, 32, 32, 4), 2, torch.float32, True, 'same',
                     (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     'keras_o2': ((1, 6, 7, 9, 4), 2, torch.bfloat16, True, 'same',
@@ -301,11 +301,18 @@ DK_BODIES = {   # name: (x_shape, O, dtype, keras, padding, ks,
     'keras_c16_o4': ((1, 4, 4, 8, 16), 4, torch.float32, True, 'same',
                      (3, 3, 3), ('voxel', 'voxel', 'voxel')),
     # 32 voxels of TC = 396 float32 weights pass 48 KB of shared memory;
-    # bfloat16 ones fit
+    # bfloat16 ones fit; K9 stages one tz at a time, whatever kz
     'keras_big_tile_f32': ((1, 12, 4, 8, 4), 1, torch.float32, True,
-                           'same', (11, 3, 3), ('voxel', 'voxel', 'voxel')),
+                           'same', (11, 3, 3), ('voxel', 'voxel', 'keras_row')),
     'keras_kz11_bf16': ((1, 12, 4, 8, 4), 1, torch.bfloat16, True, 'same',
-                        (11, 3, 3), ('keras_row', 'voxel', 'voxel')),
+                        (11, 3, 3), ('keras_row', 'keras_row', 'keras_row')),
+    # TC = 360 float32: 32 voxels' tiles fit, 45 KB
+    'keras_kz10_f32': ((1, 11, 4, 8, 4), 1, torch.float32, True, 'same',
+                       (10, 3, 3), ('keras_row', 'keras_row', 'keras_row')),
+    # a z-plane of H W TC = 4096^2 x 396 weights passes 32-bit offsets
+    'keras_big_plane': ((1, 2, 4096, 4096, 4), 1, torch.bfloat16, True,
+                        'same', (11, 3, 3), ('keras_row', 'keras_row',
+                                             'voxel')),
     # Wo = 19: a thread's voxels would cross rows
     'ragged_bf16': ((1, 15, 17, 19, 4), 1, torch.bfloat16, False, 'same',
                     (3, 3, 3), ('voxel', 'voxel', 'voxel')),
@@ -368,8 +375,8 @@ def test_dk_keras_row_needs_keras_strides_and_aligned_bases(dtype):
 
 @pytest.mark.parametrize('case', sorted(DK_BODIES))
 def test_fwd_body_picks_by_layout_and_shape(case):
-    """K7's row body takes K8's row conditions; the keras layout takes its
-    one-voxel body (K8 alone has a keras row body)."""
+    """K7's row body takes K8's row conditions, and its keras row body K8's
+    keras row conditions; every other shape its one-voxel body."""
     x_shape, O, dtype, keras, padding, ks, (_, body, _) = DK_BODIES[case]
     x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
     assert lc_cuda.fwd_body(x, view, ks, padding) == body
@@ -378,7 +385,9 @@ def test_fwd_body_picks_by_layout_and_shape(case):
 @pytest.mark.parametrize('case', sorted(DK_BODIES))
 def test_dx_body_picks_by_layout_and_shape(case):
     """K9's row body takes K8's row conditions with 'same' padding (W =
-    Wo): 'valid' and the keras layout take the one-voxel body."""
+    Wo), and its keras row body K8's keras head with 'same' padding where a
+    z-plane's weights stay within 32-bit offsets; 'valid' and every other
+    shape take the one-voxel body."""
     x_shape, O, dtype, keras, padding, ks, (_, _, body) = DK_BODIES[case]
     x, view = _dk_args(x_shape, O, dtype, keras, ks, padding)
     assert lc_cuda.dx_body(x_shape, view, ks, padding) == body
@@ -399,6 +408,39 @@ def test_fwd_dx_bodies_need_aligned_bases():
     flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
     assert lc_cuda.fwd_body(flat[1:].view(x.shape), view, ks,
                             'same') == 'voxel'
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_fwd_dx_keras_row_need_keras_head(dtype):
+    """K7's and K9's keras row bodies read the keras run [V, TC, O] and x's
+    (K7) four channels at once, at batch 1, 4 channels and 1 filter, K9 with
+    'same' padding only: weights off a 16-byte boundary, a keras view that
+    is not one run, O = 2, C = 3 or B = 3 take the one-voxel bodies, and so
+    does an x off its 4-channel voxels for K7 and 'valid' for K9."""
+    ks, shape = (3, 3, 3), (1, 4, 5, 6, 4)
+
+    def bodies(x, view, padding='same'):
+        return (lc_cuda.fwd_body(x, view, ks, padding),
+                lc_cuda.dx_body(tuple(x.shape), view, ks, padding))
+
+    x, view = _dk_args(shape, 1, dtype, keras=True, device='cpu')
+    assert bodies(x, view) == ('keras_row', 'keras_row')
+    xv, vv = _dk_args(shape, 1, dtype, keras=True, padding='valid',
+                      device='cpu')
+    assert bodies(xv, vv, 'valid') == ('keras_row', 'voxel')
+    flat = torch.empty(x.numel() + 1, dtype=dtype)
+    assert bodies(flat[1:].view(x.shape), view) == ('voxel', 'keras_row')
+    keras = view.permute(2, 1, 0)
+    flat = torch.empty(keras.numel() + 1, dtype=dtype)
+    off = lc_cuda._weight_view(flat[1:].view(keras.shape), True)
+    assert bodies(x, off) == ('voxel', 'voxel')
+    wide = torch.empty((*keras.shape[:2], 2), dtype=dtype)
+    gapped = lc_cuda._weight_view(wide[..., ::2], True)
+    assert bodies(x, gapped) == ('voxel', 'voxel')
+    for x_shape, O in (((1, 4, 5, 6, 4), 2), ((1, 4, 5, 6, 3), 1),
+                       ((3, 4, 5, 6, 4), 1)):
+        xo, vo = _dk_args(x_shape, O, dtype, keras=True, device='cpu')
+        assert bodies(xo, vo) == ('voxel', 'voxel')
 
 
 @pytest.fixture
@@ -547,3 +589,66 @@ def test_fwd_dx_bodies_equal_plain_on_card(cuda, case, dtype):
         torch.cuda.synchronize()
         assert _build.launches['lc_dx_row'] == (dx_want == 'row')
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+KERAS_FWD_DX_CASES = {   # name: (x_shape, padding, ks, K7's and K9's
+                         #        bodies in bf16, in f32)
+    # V = 378 (K7: 3 blocks of 128 output voxels, the last ragged)
+    'ragged': ((1, 6, 7, 9, 4), 'same', (3, 3, 3),
+               ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
+    # V = 990: H and W not multiples of K9's 8 x 16 tiles
+    'ragged_990': ((1, 9, 10, 11, 4), 'same', (3, 3, 3),
+                   ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
+    'valid': ((1, 6, 7, 9, 4), 'valid', (3, 3, 3),
+              ('keras_row', 'voxel'), ('keras_row', 'voxel')),
+    # kx = 2: a halo of one voxel along W
+    'kx2': ((1, 6, 7, 9, 4), 'same', (3, 3, 2),
+            ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
+    # an even kernel: low 'same' padding 0 along H
+    'kz5_ky2': ((1, 7, 6, 9, 4), 'same', (5, 2, 3),
+                ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
+    # TC = 396: K7's 32-voxel blocks in bf16, float32 past 48 KB; K9
+    # stages one tz at a time
+    'kz11': ((1, 12, 4, 8, 4), 'same', (11, 3, 3),
+             ('keras_row', 'keras_row'), ('voxel', 'keras_row')),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(KERAS_FWD_DX_CASES))
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_fwd_dx_keras_row_equal_plain_on_card(cuda, case, dtype):
+    """K7 and K9 in the keras layout, by the bodies `fwd_body` and
+    `dx_body` pick, against fwd_plain and dx_plain (with and without
+    round_q) and against their one-voxel bodies on the card: equal bits,
+    and the launch counts show which body ran."""
+    x_shape, padding, ks, bf16_bodies, f32_bodies = KERAS_FWD_DX_CASES[case]
+    fwd_want, dx_want = bf16_bodies if dtype == torch.bfloat16 else f32_bodies
+    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
+    rng = np.random.default_rng(9)
+    x, k, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda) for s in (x_shape, (int(np.prod(out)), int(np.prod(ks)) * 4),
+                        (1, *out, 1)))
+    x, k = x.to(dtype), k.to(dtype)
+    kv = lc_cuda._weight_view(k, True)
+    _build.launches.clear()
+    got = lc_cuda.fwd_cuda(x, kv, ks, padding)
+    assert _build.launches['lc_fwd_keras_row'] == (fwd_want == 'keras_row')
+    voxel = torch.empty_like(got)
+    lc_cuda._fwd_launch(x, kv, voxel, ks, padding, 'voxel')
+    want = lc_cuda.fwd_plain(x, kv, ks, padding)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), voxel.view(torch.int32))
+    ity = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for round_q in (False, True):
+        _build.launches.clear()
+        got = lc_cuda.dx_cuda(g, kv, ks, padding, x_shape, dtype, round_q)
+        assert _build.launches['lc_dx_keras_row'] == (dx_want == 'keras_row')
+        voxel = torch.empty_like(got)
+        lc_cuda._dx_launch(g, kv, voxel, ks, padding, round_q, 'voxel')
+        want = lc_cuda.dx_plain(g, kv, ks, padding, x_shape, dtype, round_q)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype
+        assert torch.equal(got.view(ity), want.view(ity))
+        assert torch.equal(got.view(ity), voxel.view(ity))
