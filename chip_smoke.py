@@ -4,12 +4,14 @@ Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases 1,2,10,13   # only the phases named
 
-Drives the port's four paths through their public entry points: the
+Drives the port's six paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
 nb_conv_per_level=2, conv_size=3, nb_labels=4, 128^3, batch 1, SoftDice,
 Adam 1e-3), the config #5 synthesis -> UNet training step, the config #3
-UNet -> LocallyConnected3D head training step and the MI registration step
-(`benchmarks/mi_context.py:32-62`); and checks every
+UNet -> LocallyConnected3D head training step, the MI registration step
+(`benchmarks/mi_context.py:32-62`), the SynthStrip training step (v1
+synthesis -> FreeSurfer's mri_synthstrip UNet) and the config #4 conv VAE
+training step (`bench.py:376-389`); and checks every
 hand-written kernel on them against its plain PyTorch version, each path's
 launch counts set to 0 just before it and read just after. Phases (phase
 1 runs whatever --phases names):
@@ -133,7 +135,38 @@ launch counts set to 0 just before it and read just after. Phases (phase
      10 steps: finite, falling losses, launches exactly K10 10 (by the
      'tiled' body) and K4 10 (by the 'vec' body),
      no host sync in a step, median step ms, pairs/s, peak memory, a
-     profile of 3 steps, and the same steps through `MI.volumes` (twin).
+     profile of 3 steps, and the same steps through `MI.volumes` (twin);
+ 16. SynthStrip at 64^3 (the 7-level UNet's pools go down to 1^3): the v1
+     synthesis (`labels_to_image(one_hot=False)`, 16 labels, 1-11 the
+     brain) through the kernels vs the plain CPU path from one set of raw
+     draws (velocity and bias fields within 1e-5 of their maximum, the
+     deformation within 1e-4, the map's mismatch share at most 1e-3 for
+     nearest ties, the image within 1e-4 away from mismatches); then one
+     f32 `SynthStrip` step through the kernels (K1, K2 6 each, K4 6, K6 3)
+     and one through their plain versions (`impl='plain'`) from the same
+     weights and draws (TF32 off, deterministic cuDNN): losses within rtol
+     1e-5, each gradient within 1e-4 of its largest magnitude;
+ 17. SynthStrip (`SynthStrip(inshape=(128,)*3, labels_in=range(16),
+     labels_out={1..11: 1}, nb_unet_features=[16, 32, 64, 64, 64, 64, 64],
+     nb_unet_conv_per_level=2)`, 2,566,145 parameters, f32), the sigmoid
+     soft Dice of `examples/synthstrip_training.py:32-39`, Adam 1e-3, 10
+     steps at 128^3, the synthesis drawn anew each step: finite losses,
+     launch counts of K1, K2, K4 and K6 exactly those of 10 steps, each K1
+     and K4 launch by the 'vec' body and each K6 launch by the 'whole' body
+     that their choosers pick (printed per shape); median step ms, vol/s,
+     peak memory, the synthesis ms by CUDA events, no host sync in the
+     synthesis, profiles of 3 synthesis calls and of 3 steps (idle share);
+ 18. one f32 config #4 step at 64^3 (enc_size (4, 4, 4, 16)) through the
+     kernels (K1, K2 3 each) and one through the plain pools from the same
+     weights and one `SampleNormalLogVar` draw: losses within rtol 1e-5,
+     gradients within 1e-4 of their largest magnitude;
+ 19. config #4 (`ae(nb_features=8, input_shape=(128,)*3+(1,), nb_levels=4,
+     conv_size=3, nb_labels=1, enc_size=(8, 8, 8, 16), ae_type='conv',
+     do_vae=True, feat_mult=2, final_pred_activation='linear', bf16)`,
+     228,593 parameters), MSE against the f32 input, Adam 1e-4, 10 steps:
+     finite losses, launch counts of K1 and K2 exactly those of 10 steps,
+     each K1 launch by the 'vec' body (bf16 channels 8, 16, 32); median
+     step ms, vol/s, peak memory, a profile of 3 steps (idle share).
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -148,7 +181,8 @@ PyTorch call computing the same function, timed here and used nowhere in
 the port.
 
 Prints one line per check, then a JSON line of the kernels (each with its
-path run's launches and body launches, `body_launches`), and last
+path run's launches and body launches, `body_launches`, and in `paths` its
+launches and body launches on the SynthStrip and config #4 runs), and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
 machine without a CUDA device. Run with --phases, a kernel's fields that
 no phase of the run measured are null, and both JSON lines carry the
@@ -221,16 +255,30 @@ BODY_COUNTERS = {
     'lc_dx': ('lc_dx_row', 'lc_dx_keras_row'),
     'mi_hist': ('mi_hist_tiled',),
 }
+# the paths that run ported kernels at other shapes: (the phase that counts
+# their launches, the kernels they run); the kernels line gives each
+# kernel's launches on each in `paths`
+PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
+                                   'blur')),
+             'vae': ('19', ('pool2_fwd', 'pool2_bwd'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
-          '13', '14', '15')
+          '13', '14', '15', '16', '17', '18', '19')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
 MI_BINS = 16        # the registration path's MutualInformation(nb_bins=16)
 REG_CHECK_VOL = 64  # its step on the card vs the plain CPU path
 REG_LR = 1e-2
+# SynthStrip: FreeSurfer's mri_synthstrip StripModel widths through the JAX
+# builder's knobs; the brain is labels 1-11 of 16
+SYNTHSTRIP = dict(labels_in=range(16), labels_out={l: 1 for l in range(1, 12)},
+                  nb_unet_features=[16, 32, 64, 64, 64, 64, 64],
+                  nb_unet_conv_per_level=2)
+STRIP_CHECK_VOL = 64    # its step kernels vs plain: the pools go down to 1^3
+STRIP_POOLS = [(128, 16), (64, 32), (32, 64), (16, 64), (8, 64), (4, 64)]
+VAE_CHECK_VOL = 64      # config #4's f32 step, kernels vs plain
 
 
 class Checks:
@@ -1545,10 +1593,12 @@ def mse(y_true, y_pred):
     return torch.mean((y_true - y_pred.float()) ** 2)
 
 
-def phase_lc_check(checks):
-    print(f'== 11. config #3 f32 step at {LC_CHECK_VOL}^3: kernels vs plain',
-          flush=True)
-    x, y = config3_inputs(LC_CHECK_VOL)
+def plain_vs_kernels(checks, path, make, step_args, launches):
+    """One float32 step of make(impl) through the kernels ('auto') and
+    through their plain versions ('plain') from the same weights and the
+    same draws (TF32 off, deterministic cuDNN): the losses within rtol
+    1e-5, every gradient within 1e-4 of its largest magnitude, the kernel
+    run's launches `launches`, the plain run's none."""
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.deterministic)
@@ -1558,33 +1608,41 @@ def phase_lc_check(checks):
     try:
         runs = {}
         for impl in ('auto', 'plain'):
-            model = EncDecLC(LC_CHECK_VOL, None, impl)
-            state = training.create_train_state(model, training.adam(1e-4))
+            model, loss_fn = make(impl)
+            state = training.create_train_state(model, training.adam(1e-3))
             _build.launches.clear()
-            state, m = training.make_train_step(mse)(state, (x, y))
+            state, m = training.make_train_step(loss_fn)(state, *step_args())
             runs[impl] = (float(m['loss']), dict(_build.launches),
                           {n: p.grad.detach().clone()
                            for n, p in model.named_parameters()})
             del model, state
         (lk, nk, gk), (lp, np_, gp) = runs['auto'], runs['plain']
-        checks.check('config #3 f32 launches', all(
-            nk.get(n, 0) == c for n, c in (('lc_fwd', 1), ('lc_fwd_row', 1),
-                                           ('lc_dk', 1), ('lc_dk_row', 1),
-                                           ('lc_dx', 1), ('lc_dx_row', 1),
-                                           ('pool2_fwd', 2),
-                                           ('pool2_bwd', 2)))
-            and not np_, f'kernels {nk}, plain {np_}')
-        checks.check('config #3 f32 loss', abs(lk - lp) <= 1e-5 * abs(lp),
+        checks.check(f'{path} f32 launches', all(
+            nk.get(n, 0) == c for n, c in launches.items()) and not np_,
+            f'kernels {nk}, plain {np_}')
+        checks.check(f'{path} f32 loss', abs(lk - lp) <= 1e-5 * abs(lp),
                      f'kernels {lk!r} plain {lp!r} (rtol 1e-5)')
         worst = max(float((gk[n] - gp[n]).abs().max() / gp[n].abs().max())
                     for n in gp)
-        checks.check('config #3 f32 grads', worst <= 1e-4,
+        checks.check(f'{path} f32 grads', worst <= 1e-4,
                      f'{len(gp)} tensors, worst max|diff|/max|g| {worst:.3g} '
                      f'(limit 1e-4); all equal '
                      f'{all(torch.equal(gk[n], gp[n]) for n in gp)}')
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
+
+
+def phase_lc_check(checks):
+    print(f'== 11. config #3 f32 step at {LC_CHECK_VOL}^3: kernels vs plain',
+          flush=True)
+    x, y = config3_inputs(LC_CHECK_VOL)
+    plain_vs_kernels(
+        checks, 'config #3',
+        lambda impl: (EncDecLC(LC_CHECK_VOL, None, impl), mse),
+        lambda: ((x, y),),
+        {'lc_fwd': 1, 'lc_fwd_row': 1, 'lc_dk': 1, 'lc_dk_row': 1,
+         'lc_dx': 1, 'lc_dx_row': 1, 'pool2_fwd': 2, 'pool2_bwd': 2})
 
 
 def phase_lc_train(checks, res):
@@ -1949,6 +2007,268 @@ def phase_reg_train(checks, res):
           flush=True)
 
 
+###############################################################################
+# SynthStrip (phases 16, 17) and the config #4 VAE (phases 18, 19)
+###############################################################################
+
+def synthstrip(vol, impl='auto'):
+    """FreeSurfer's mri_synthstrip StripModel widths (nb_features=16,
+    nb_levels=7, feat_mult=2, max_features=64, 2 convs a level), 16
+    generation labels, 1-11 the brain; weights from seed 0."""
+    return nt.models.SynthStrip(
+        inshape=(vol,) * 3, impl=impl,
+        generator=torch.Generator().manual_seed(0), device='cuda',
+        **SYNTHSTRIP)
+
+
+def strip_loss(_, out):
+    """`examples/synthstrip_training.py:32-39`: sigmoid soft Dice of channel
+    0 (the prediction) against channel 1 (the synthesized brain mask),
+    summed over every axis but the batch."""
+    pred, truth = out[..., :1], out[..., 1:]
+    p = torch.sigmoid(pred)
+    axes = tuple(range(1, out.ndim))
+    top = 2 * (p * truth).sum(axes)
+    bot = (p * p).sum(axes) + (truth * truth).sum(axes)
+    return -(top / bot.clamp_min(1e-7)).mean()
+
+
+def strip_labels(vol, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, SYNTH_LABELS, size=(1, vol, vol, vol, 1))).cuda()
+
+
+def vae(vol, dtype=None, pool_impl='auto'):
+    """bench.py's config #4 (`bench.py:378-384`); at a volume other than
+    128^3 the latent keeps its place: enc_size (vol / 16,)^3 + (16,), half
+    the encoder's output."""
+    return nt.models.ae(
+        nb_features=8, input_shape=(vol,) * 3 + (1,), nb_levels=4,
+        conv_size=3, nb_labels=1, enc_size=(vol // 16,) * 3 + (16,),
+        ae_type='conv', do_vae=True, feat_mult=2, single_model=True,
+        final_pred_activation='linear', dtype=dtype, pool_impl=pool_impl,
+        generator=torch.Generator().manual_seed(0), device='cuda')
+
+
+def vae_input(vol):
+    """bench.py's vae_rate input: default_rng(0) normal [1, vol^3, 1]."""
+    x = np.random.default_rng(0).normal(size=(1, vol, vol, vol, 1))
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def record_path(res, path, counts, names):
+    """Kernel launches (and body launches) of a path's run, per kernel, in
+    the kernels line's `paths`."""
+    for name in names:
+        res[name]['paths'][path] = {
+            'launches': counts.get(name, 0),
+            'body_launches': {c: counts.get(c, 0)
+                              for c in BODY_COUNTERS[name]}}
+
+
+def check_step_counts(checks, path, counts, per_step, steps):
+    for name, n in per_step.items():
+        got, want = counts.get(name, 0), n * steps
+        checks.check(f'{path} launches {name}', got == want and got > 0,
+                     f'{got} (expected {n} per step)')
+
+
+def phase_strip_check(checks):
+    vol = STRIP_CHECK_VOL
+    print(f'== 16. SynthStrip at {vol}^3: the v1 synthesis through the '
+          f'kernels vs the plain CPU path; one f32 step, kernels vs plain',
+          flush=True)
+    lab = strip_labels(vol, 1).cpu()
+    kw = dict(in_label_list=SYNTHSTRIP['labels_in'],
+              out_label_list=SYNTHSTRIP['labels_out'], one_hot=False,
+              return_vel=True, return_def=True)
+    gpu = nt.models.labels_to_image((vol,) * 3, device='cuda', **kw)
+    cpu = nt.models.labels_to_image((vol,) * 3, device='cpu', **kw)
+    # the raw draws made once; each device sums its Perlin fields and runs
+    # the rest of the path (K4 and K6 on the card, plain on the CPU)
+    draws = gpu.draw(lab.shape, torch.Generator(device='cuda').manual_seed(5))
+    with torch.no_grad():
+        fg = gpu.perlin(draws, lab.shape)
+        fc = cpu.perlin(to_device(draws, 'cpu'), lab.shape)
+        og = gpu.apply(lab.cuda(), fg)
+        oc = cpu.apply(lab, fc)
+    torch.cuda.synchronize()
+    og = {k: v.cpu() for k, v in og.items()}
+    rel = {k: max_abs_err(fg[k].cpu(), fc[k]) / float(fc[k].abs().max())
+           for k in ('vel', 'bias')}
+    e_def = max_abs_err(og['def'], oc['def'])
+    bad = (og['map'] != oc['map'])[..., 0]
+    mism = float(bad.float().mean())
+    # a flipped label changes its voxel's intensity, and the image blur (7
+    # taps, radius 3) its neighbours': compared elsewhere
+    near = torch.nn.functional.max_pool3d(bad[:, None].float(), 7, stride=1,
+                                          padding=3)[:, 0] > 0
+    kept = float((~near).float().mean())
+    e_img = max_abs_err(og['image'][~near], oc['image'][~near])
+    ok = (max(rel.values()) <= 1e-5 and e_def <= 1e-4 and mism <= 1e-3
+          and kept >= .5 and e_img <= 1e-4)
+    checks.check('SynthStrip synthesis kernels vs plain CPU', ok,
+                 f'vel {rel["vel"]:.3g} and bias {rel["bias"]:.3g} max abs '
+                 f'err over max (1e-5); def max abs err {e_def:.3g} (1e-4); '
+                 f'map mismatch share {mism:.3g} (1e-3, nearest ties); image '
+                 f'max abs err {e_img:.3g} (1e-4) on the {kept:.4f} of voxels '
+                 f'farther than 3 from a mismatch')
+    lab = lab.cuda()
+    plain_vs_kernels(
+        checks, 'SynthStrip', lambda impl: (synthstrip(vol, impl), strip_loss),
+        lambda: ((lab, lab), training.step_generator(0, 0, 'cuda')),
+        {'pool2_fwd': 6, 'pool2_bwd': 6, 'interpn': 6, 'blur': 3})
+
+
+def phase_strip_train(checks, res):
+    print(f'== 17. SynthStrip: v1 synthesis -> f32 UNet (mri_synthstrip '
+          f'widths, 7 levels), {TRAIN_STEPS} steps at {VOL}^3', flush=True)
+    lab = strip_labels(VOL, 0)
+    model = synthstrip(VOL)
+    n_par = sum(p.numel() for p in model.parameters())
+    checks.check('SynthStrip parameters', n_par == 2566145,
+                 f'{n_par} (FreeSurfer StripModel: 2566145)')
+    state = training.create_train_state(model, training.adam(1e-3))
+    step = training.make_train_step(strip_loss)
+    # the bodies the choosers pick at the path's shapes (from shapes alone)
+    for size, c in STRIP_POOLS:
+        body = pool_cuda.plan((1, size, size, size, c), torch.float32,
+                              (0, 0)).body
+        print(f'  pool2_fwd at [1, {size}^3, {c}] f32: pool_cuda.plan picks '
+              f'{body!r}')
+    for size, c, what in ((VOL // 2, 3, 'linear squaring'),
+                          (VOL, 1, 'nearest label warp')):
+        body = warp_cuda.plan(
+            torch.empty((1, size, size, size, c), device='meta'),
+            torch.empty((1, size, size, size, 3), device='meta'))
+        print(f'  interpn, {what} at [1, {size}^3, {c}]: warp_cuda.plan '
+              f'picks {body!r}')
+    for axis in (1, 2, 3):
+        print(f'  blur axis {axis} at [1, {VOL}^3], 7 taps: blur_cuda.plan '
+              f'picks {blur_cuda.plan((1, VOL, VOL, VOL), axis, 7).body!r}')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, (lab, lab),
+                        training.step_generator(0, i, 'cuda'))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m['loss'])
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    checks.check('SynthStrip losses finite', all(np.isfinite(losses)),
+                 ' '.join(f'{v:.6f}' for v in losses))
+    check_step_counts(checks, 'SynthStrip', counts,
+                      {'pool2_fwd': 6, 'pool2_fwd_vec': 6, 'pool2_bwd': 6,
+                       'interpn': 6, 'interpn_vec': 6, 'blur': 3,
+                       'blur_whole': 3}, TRAIN_STEPS)
+    record_path(res, 'synthstrip', counts,
+                ('pool2_fwd', 'pool2_bwd', 'interpn', 'blur'))
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    print(f'  step ms (synthesis + train step, median of steps '
+          f'{WARMUP_STEPS + 1}-{TRAIN_STEPS}): {step_ms:.3f}; all: '
+          + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+
+    def synth(i):
+        with torch.no_grad():
+            return model.gen(lab, training.step_generator(0, i, 'cuda'))
+    s_ms = []
+    for i in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        synth(i)
+        ev[1].record()
+        ev[1].synchronize()
+        s_ms.append(ev[0].elapsed_time(ev[1]))
+    print(f'  synthesis ms (CUDA events, median of calls {WARMUP_STEPS + 1}-'
+          f'{TRAIN_STEPS}): {statistics.median(s_ms[WARMUP_STEPS:]):.3f}; '
+          f'all: ' + ' '.join(f'{t:.2f}' for t in s_ms), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        synth(TRAIN_STEPS)
+        synced = ''
+    except RuntimeError as e:
+        synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    checks.check('SynthStrip synthesis without host sync', not synced,
+                 synced or "sync debug mode 'error' raised nothing")
+    for label, fn in (('SynthStrip synthesis', synth),
+                      ('SynthStrip step', lambda i: step(
+                          state, (lab, lab),
+                          training.step_generator(0, i, 'cuda')))):
+        try:
+            report_profile(label, fn, TRAIN_STEPS)
+        except Exception as e:  # noqa: BLE001  (a reading, not a check)
+            print(f'  {label} profile not measured: {type(e).__name__}: {e}')
+
+
+def phase_vae_check(checks):
+    vol = VAE_CHECK_VOL
+    print(f'== 18. config #4 VAE f32 step at {vol}^3: kernels vs plain',
+          flush=True)
+    x = vae_input(vol)
+    plain_vs_kernels(
+        checks, 'config #4',
+        lambda impl: (vae(vol, pool_impl=impl), mse),
+        lambda: ((x, x), torch.Generator(device='cuda').manual_seed(1)),
+        {'pool2_fwd': 3, 'pool2_bwd': 3})
+
+
+def phase_vae_train(checks, res):
+    print(f'== 19. config #4: conv VAE (bf16 encoder), {TRAIN_STEPS} steps '
+          f'at {VOL}^3', flush=True)
+    model = vae(VOL, torch.bfloat16)
+    n_par = sum(p.numel() for p in model.parameters())
+    checks.check('config #4 parameters', n_par == 228593,
+                 f'{n_par} (bench.py vae_rate: 228593)')
+    for size, c in ((VOL, 8), (VOL // 2, 16), (VOL // 4, 32)):
+        body = pool_cuda.plan((1, size, size, size, c), torch.bfloat16,
+                              (0, 0)).body
+        print(f'  pool2_fwd at [1, {size}^3, {c}] bf16: pool_cuda.plan picks '
+              f'{body!r}')
+    x = vae_input(VOL)
+    state = training.create_train_state(model, training.adam(1e-4))
+    step = training.make_train_step(mse)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, (x, x), gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m['loss'])
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    checks.check('config #4 losses finite', all(np.isfinite(losses)),
+                 ' '.join(f'{v:.6f}' for v in losses))
+    check_step_counts(checks, 'config #4', counts,
+                      {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3},
+                      TRAIN_STEPS)
+    record_path(res, 'vae', counts, ('pool2_fwd', 'pool2_bwd'))
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
+          f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+    try:
+        report_profile('config #4 step', lambda i: step(state, (x, x), gen),
+                       TRAIN_STEPS)
+    except Exception as e:  # noqa: BLE001  (a reading, not a check)
+        print(f'  config #4 profile not measured: {type(e).__name__}: {e}')
+
+
 def report_profile(label, fn, first):
     """Wall time, device busy time and idle share of PROFILE_STEPS calls
     fn(first), fn(first + 1), ..., and the device time by kernel."""
@@ -1995,7 +2315,7 @@ def main(argv=None):
     res = {n: {'name': n, 'route': 'cuda', 'source': src, 'replaces': rep,
                'launches': 0, 'body_launches': {}, 'max_abs_err': 0.,
                'ms': 0., 'plain_ms': 0., 'bound_ms': 0., 'bound_by': None,
-               'library_ms': 0.}
+               'library_ms': 0., 'paths': {}}
            for n, (src, rep, _, _) in KERNELS.items()}
     build = f'{phase_build():.3f} s' if '2' in run else 'not run (phase 2)'
     phases = {
@@ -2013,6 +2333,10 @@ def main(argv=None):
         '13': lambda: phase_mi(checks, res),
         '14': lambda: phase_reg_check(checks),
         '15': lambda: phase_reg_train(checks, res),
+        '16': lambda: phase_strip_check(checks),
+        '17': lambda: phase_strip_train(checks, res),
+        '18': lambda: phase_vae_check(checks),
+        '19': lambda: phase_vae_train(checks, res),
     }
     for name, fn in phases.items():
         if name in run:
@@ -2023,6 +2347,10 @@ def main(argv=None):
             res[n].update(dict.fromkeys(MEASURED))
         if count not in run:
             res[n].update(launches=None, body_launches=None)
+    for path, (phase, names) in PATH_RUNS.items():
+        if phase not in run:
+            for n in names:
+                res[n]['paths'][path] = None
     ran = ",".join(p for p in PHASES if p in run)
     print(f'phases run: {ran}'
           + ('' if len(run) == len(PHASES) else
@@ -2036,7 +2364,9 @@ def main(argv=None):
           f'7 taps), one LC call each at the config #3 head (bf16), one MI '
           f'histogram call at [1, 128^3] with 16 bins; K1-K3 launches are '
           f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 config #3\'s, '
-          f'K10 the MI registration run\'s')
+          f'K10 the MI registration run\'s; `paths` gives K1, K2, K4 and K6 '
+          f'launches on the SynthStrip run (phase 17) and K1 and K2 on the '
+          f'config #4 run (phase 19)')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}

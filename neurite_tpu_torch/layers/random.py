@@ -21,7 +21,7 @@ from neurite_tpu_torch.utils import augment as aug
 from neurite_tpu_torch.utils import core
 
 __all__ = ['GaussianBlur', 'GaussianNoise', 'Subsample', 'RandomCrop',
-           'PerlinNoise']
+           'RandomClip', 'SampleNormalLogVar', 'PerlinNoise']
 
 
 def _need(generator):
@@ -247,6 +247,98 @@ class RandomCrop(nn.Module):
 
     def forward(self, x, generator=None):
         return self.apply(x, self.draw(x.shape, generator, x.device))
+
+
+class RandomClip(nn.Module):
+    """
+    Random lower and upper clipping. Each side's threshold is `clip_min`
+    (`clip_max`) where that is a number, or uniform in its (lo, hi) pair,
+    drawn separately along `axes`; with probability 1 - `prob_min`
+    (`prob_max`), drawn along the same axes, a side keeps the minimum
+    (maximum) of x and so clips nothing.
+
+    Parity: reference `layers.py:522-628`.
+    """
+
+    def __init__(self, clip_min=None, clip_max=None, prob_min=1, prob_max=1,
+                 axes=0):
+        super().__init__()
+        for prob in (prob_min, prob_max):
+            if not 0 <= prob <= 1:
+                raise ValueError(f'{prob} is not a probability')
+        self.sides = (('low', clip_min, prob_min), ('upp', clip_max,
+                                                    prob_max))
+        self.axes = axes
+
+    def _off(self):
+        return all(prob == 0 for _, _, prob in self.sides)
+
+    def draw(self, shape, generator, device):
+        """{'low' | 'upp': (threshold uniform or None, gate uniform or
+        None)}, each of x's shape but 1 off `axes` (a side whose bounds are
+        None or whose prob is 0 draws neither), or None."""
+        if self._off():
+            return None
+        axes = normalize_axes(self.axes, shape, none_means_all=False)
+        shape = tuple(shape[i] if i in axes else 1 for i in range(len(shape)))
+        out = {}
+        for side, bounds, prob in self.sides:
+            if bounds is None or prob == 0:
+                out[side] = (None, None)
+                continue
+            _need(generator)
+            val = (None if np.isscalar(bounds) else core.uniform(
+                generator, shape, float(bounds[0]), float(bounds[1]), device))
+            gate = (torch.rand(shape, generator=generator, device=device)
+                    if prob < 1 else None)
+            out[side] = (val, gate)
+        return out
+
+    def apply(self, x, draws):
+        if self._off():
+            return x
+        axes = normalize_axes(self.axes, x.shape, none_means_all=False)
+        shape = tuple(x.shape[i] if i in axes else 1 for i in range(x.ndim))
+        thresh = {}
+        for (side, bounds, prob), no_clip in zip(self.sides,
+                                                 (x.min(), x.max())):
+            val, gate = draws[side]
+            if bounds is None or prob == 0:
+                thresh[side] = no_clip
+                continue
+            at = (torch.full(shape, float(bounds), dtype=x.dtype,
+                             device=x.device) if val is None
+                  else val.to(x.dtype))
+            if gate is not None:
+                bit = (gate < prob).to(x.dtype)
+                at = bit * at + (1 - bit) * no_clip
+            thresh[side] = at
+        return torch.minimum(torch.maximum(x, thresh['low']), thresh['upp'])
+
+    def forward(self, x, generator=None):
+        return self.apply(x, self.draw(x.shape, generator, x.device))
+
+
+class SampleNormalLogVar(nn.Module):
+    """
+    Reparameterization sampler: z = mu + exp(log_var / 2) * N(0, 1) for
+    x = [mu, log_var]. The noise is float32 whatever mu's dtype, so a
+    bfloat16 mu gives a float32 z, as in the JAX package.
+
+    Parity: reference `layers.py:2261-2302`.
+    """
+
+    def draw(self, shape, generator, device):
+        """The standard normal noise, float32 of mu's shape."""
+        return torch.randn(tuple(shape), generator=_need(generator),
+                           device=device, dtype=torch.float32)
+
+    def apply(self, x, noise):
+        mu, log_var = x
+        return mu + torch.exp(log_var / 2.0) * noise
+
+    def forward(self, x, generator=None):
+        return self.apply(x, self.draw(x[0].shape, generator, x[0].device))
 
 
 class PerlinNoise(nn.Module):

@@ -17,7 +17,8 @@ from neurite_tpu_torch.utils import core
 
 __all__ = ['draw_perlin', 'random_blur_rescale', 'draw_perlin_full',
            'draw_crop_mask', 'blur_rescale', 'draw_perlin_levels',
-           'perlin_from_levels', 'std']
+           'perlin_from_levels', 'draw_perlin_scales', 'perlin_from_scales',
+           'std']
 
 
 def std(x):
@@ -32,28 +33,50 @@ def draw_perlin(out_shape, scales, min_std=0, max_std=1, dtype=torch.float32,
     Perlin-style noise: normal noise drawn at each `scale` (relative
     resolution), upsampled to `out_shape` (N spatial sizes and a trailing
     feature count) and summed; each scale's SD is uniform in [min_std,
-    max_std).
+    max_std). `draw_perlin_scales` and `perlin_from_scales` are its draw
+    and its apply.
 
     Parity: reference `neurite/tf/utils/augment.py:7-62`.
     """
+    draws = draw_perlin_scales(out_shape, scales, min_std, max_std, dtype,
+                               seed, device)
+    return perlin_from_scales(out_shape, draws)
+
+
+def draw_perlin_scales(out_shape, scales, min_std=0, max_std=1,
+                       dtype=torch.float32, seed=None, device=None):
+    """The draws of `draw_perlin`: per scale, its SD (0-d) and its standard
+    normal field of ceil(spatial / scale) voxels and the trailing feature
+    count, as a list of (sd, noise)."""
     device = backend.resolve_device(device)
     out_shape = [int(s) for s in out_shape]
     if np.isscalar(scales):
         scales = [scales]
     gen = core.as_generator(seed, device)
-    out = torch.zeros(out_shape, dtype=dtype, device=device)
+    draws = []
     for scale in scales:
         sample = [int(s) for s in np.ceil(np.asarray(out_shape[:-1]) / scale)]
         sd = core.uniform(gen, (), float(min_std), float(max_std), device,
                           dtype)
-        gauss = sd * torch.randn((*sample, out_shape[-1]), generator=gen,
-                                 device=device, dtype=dtype)
-        if scale == 1:
-            out = out + gauss
-        else:
-            out = out + core.resize(gauss, [o / s for o, s in
-                                            zip(out_shape[:-1], sample)],
-                                    new_shape=out_shape[:-1])
+        draws.append((sd, torch.randn((*sample, out_shape[-1]), generator=gen,
+                                      device=device, dtype=dtype)))
+    return draws
+
+
+def perlin_from_scales(out_shape, draws):
+    """The apply of `draw_perlin`: each scale's sd * noise, resized to
+    `out_shape` where its shape differs, summed."""
+    out_shape = [int(s) for s in out_shape]
+    out = 0
+    for sd, noise in draws:
+        gauss = sd * noise
+        if list(gauss.shape) != out_shape:
+            gauss = core.resize(gauss, [o / s for o, s in
+                                        zip(out_shape[:-1], gauss.shape)],
+                                new_shape=out_shape[:-1])
+        out = out + gauss
+    if not torch.is_tensor(out):
+        raise ValueError('draw_perlin needs at least one scale')
     return out
 
 

@@ -414,7 +414,7 @@ def conv_axis(x, k, axis, padding='SAME', stride=1, dilation=1):
 
 
 def separable_conv(x, kernels, axis=None, batched=False, padding='SAME',
-                   strides=None, dilations=None):
+                   strides=None, dilations=None, impl='auto'):
     """
     Apply 1-D kernels along chosen spatial axes of a [*spatial, C] (or
     [B, *spatial, C] when batched) tensor; the same filters apply to every
@@ -422,7 +422,8 @@ def separable_conv(x, kernels, axis=None, batched=False, padding='SAME',
 
     A 3-D CUDA tensor with padding 'SAME', stride 1 and dilation 1 takes the
     separable blur kernel K6 (`ops.blur`, float32 only); every other case runs
-    `conv_axis` per axis.
+    `conv_axis` per axis, and so does every case with impl='plain' (K6's
+    plain version on any device).
 
     Parity: reference `neurite/tf/utils/utils.py:665-752`.
     """
@@ -457,7 +458,10 @@ def separable_conv(x, kernels, axis=None, batched=False, padding='SAME',
     shape_space = tuple(x.shape[1:-1])
     y = x.movedim(-1, 1).reshape(b * c, *shape_space)
 
-    if (x.is_cuda and num_dim == 3 and str(padding).upper() == 'SAME'
+    if impl not in ('auto', 'plain'):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    if (impl == 'auto' and x.is_cuda and num_dim == 3
+            and str(padding).upper() == 'SAME'
             and len(set(axis)) == len(axis)
             and all(s == 1 for s in strides)
             and all(d == 1 for d in dilations)):
