@@ -4,14 +4,16 @@ Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases 1,2,10,13   # only the phases named
 
-Drives the port's six paths through their public entry points: the
+Drives the port's nine paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
 nb_conv_per_level=2, conv_size=3, nb_labels=4, 128^3, batch 1, SoftDice,
 Adam 1e-3), the config #5 synthesis -> UNet training step, the config #3
 UNet -> LocallyConnected3D head training step, the MI registration step
 (`benchmarks/mi_context.py:32-62`), the SynthStrip training step (v1
-synthesis -> FreeSurfer's mri_synthstrip UNet) and the config #4 conv VAE
-training step (`bench.py:376-389`); and checks every
+synthesis -> FreeSurfer's mri_synthstrip UNet), the config #4 conv VAE
+training step (`bench.py:376-389`), config #4's sparse-imputation VAE step
+(`benchmarks/vae_sparse.py`), and the flagship with space_to_depth=2 and
+with remat=True (with checkpoints and the checked step); and checks every
 hand-written kernel on them against its plain PyTorch version, each path's
 launch counts set to 0 just before it and read just after. Phases (phase
 1 runs whatever --phases names):
@@ -166,7 +168,41 @@ launch counts set to 0 just before it and read just after. Phases (phase
      228,593 parameters), MSE against the f32 input, Adam 1e-4, 10 steps:
      finite losses, launch counts of K1 and K2 exactly those of 10 steps,
      each K1 launch by the 'vec' body (bf16 channels 8, 16, 32); median
-     step ms, vol/s, peak memory, a profile of 3 steps (idle share).
+     step ms, vol/s, peak memory, a profile of 3 steps (idle share);
+ 20. `SpatiallySparse_Dense` at D = 32^3, d = 32 with a bias, on the card
+     against the CPU from the same weights: the encode through its
+     one-shot and its chunked branch (`sparse._ENCODE_CHUNK_ELEMS`
+     patched) and the decode, values and gradients within 1e-5 of their
+     largest magnitude (float32 products of 32^3 terms in another order);
+     TF32 off for them; one f32 sparse VAE step at 32^3 on each device
+     from the same weights and noise: loss within rtol 1e-5, every
+     gradient within 1e-4 of its largest magnitude;
+ 21. config #4's sparse VAE (`benchmarks/vae_sparse.py:33-60`: [1, 128^3,
+     1] default_rng(1) noise, every 8th z-slice observed,
+     SpatiallySparse_Dense d = 128 encode -> Dense mu and logvar ->
+     SampleNormalLogVar -> shared-weight decode, MSE on the observed
+     voxels, Adam 1e-4, f32), 10 steps: finite losses, no host sync in a
+     step (CUDA's sync debug mode), median step ms, vol/s, peak memory, the
+     step's bound from its FLOPs (30 D d^2) and bytes, a profile of 3
+     steps (idle share);
+ 22. the flagship with space_to_depth=2: one f32 step at 64^3 through the
+     kernels and one through the plain pools and Dice from the same
+     weights (as phase 5: losses within rtol 1e-5, gradients within 1e-4
+     of their largest magnitude); 10 bf16 steps at 128^3: finite losses,
+     launches exactly K1 3, K2 3, K3 1 a step (pools at 64^3*16, 32^3*32,
+     16^3*64, Dice at [1, 128^3, 4]), every K1 and K3 launch by its 'vec'
+     body; median step ms, vol/s, peak memory, a profile of 3 steps;
+ 23. the flagship with remat=True at 128^3: one f32 step against one with
+     remat=False from the same weights (TF32 off, deterministic cuDNN):
+     loss and gradients within rtol 1e-6; 10 bf16 steps each with and
+     without remat: launches exactly K1 6 (the pools sit inside the
+     recomputed encoder, as in JAX), K2 3, K3 1 a step with remat, median
+     step ms, and the peak memory lower with remat; a checkpoint round trip
+     (2 steps, save, restore into a fresh state, 2 steps) bit-equal to 4
+     steps; the checked step (`make_checked_train_step`, SoftDice with
+     check_input_limits='checkify'): no host sync in a clean step, which
+     reports no error, and `throw()` raising JAX's message for a Dice
+     input scaled outside [0, 1].
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -182,7 +218,8 @@ the port.
 
 Prints one line per check, then a JSON line of the kernels (each with its
 path run's launches and body launches, `body_launches`, and in `paths` its
-launches and body launches on the SynthStrip and config #4 runs), and last
+launches and body launches on the SynthStrip, config #4, space_to_depth
+and remat runs), and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
 machine without a CUDA device. Run with --phases, a kernel's fields that
 no phase of the run measured are null, and both JSON lines carry the
@@ -196,6 +233,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -203,6 +241,8 @@ import torch
 
 import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
+from neurite_tpu_torch.layers import sparse
+from neurite_tpu_torch.models.ae import Dense
 from neurite_tpu_torch.ops import (_build, blur, blur_cuda, dice_red, lc_cuda,
                                    mi_hist, mi_hist_cuda, pool, pool_cuda,
                                    warp_cuda)
@@ -260,11 +300,13 @@ BODY_COUNTERS = {
 # kernel's launches on each in `paths`
 PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
                                    'blur')),
-             'vae': ('19', ('pool2_fwd', 'pool2_bwd'))}
+             'vae': ('19', ('pool2_fwd', 'pool2_bwd')),
+             's2d': ('22', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
-          '13', '14', '15', '16', '17', '18', '19')
+          '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -279,6 +321,13 @@ SYNTHSTRIP = dict(labels_in=range(16), labels_out={l: 1 for l in range(1, 12)},
 STRIP_CHECK_VOL = 64    # its step kernels vs plain: the pools go down to 1^3
 STRIP_POOLS = [(128, 16), (64, 32), (32, 64), (16, 64), (8, 64), (4, 64)]
 VAE_CHECK_VOL = 64      # config #4's f32 step, kernels vs plain
+# config #4's sparse VAE (`benchmarks/vae_sparse.py`): d = 128 at 128^3,
+# Adam 1e-4; checked card vs CPU at 32^3 with d = 32
+SPARSE_LATENT = 128
+SPARSE_LR = 1e-4
+SPARSE_CHECK_VOL = 32
+SPARSE_CHECK_LATENT = 32
+S2D_CHECK_VOL = 64      # the space_to_depth flagship's f32 step, kernels vs plain
 
 
 class Checks:
@@ -647,23 +696,25 @@ def phase_dice(checks, res):
               f'ms; one kernel call {c_ms:.4f} ms', flush=True)
 
 
-def flagship_inputs():
+def flagship_inputs(vol=VOL):
     """bench.py's inputs: numpy default_rng(0) normal image, random labels."""
     rng = np.random.default_rng(0)
-    x = rng.normal(size=(1, VOL, VOL, VOL, 1)).astype(np.float32)
-    lab = rng.integers(0, NB_LABELS, size=(1, VOL, VOL, VOL))
+    x = rng.normal(size=(1, vol, vol, vol, 1)).astype(np.float32)
+    lab = rng.integers(0, NB_LABELS, size=(1, vol, vol, vol))
     x = torch.from_numpy(x).cuda()
     y = torch.nn.functional.one_hot(torch.from_numpy(lab).cuda(),
                                     NB_LABELS).float()
     return x, y
 
 
-def flagship(dtype=None, pool_impl='auto'):
+def flagship(dtype=None, pool_impl='auto', vol=VOL, seed=0, **kw):
+    """The flagship UNet (weights from `seed`); `kw` sets space_to_depth
+    or remat."""
     return nt.models.unet(
-        nb_features=16, input_shape=(VOL, VOL, VOL, 1), nb_levels=4,
+        nb_features=16, input_shape=(vol, vol, vol, 1), nb_levels=4,
         conv_size=3, nb_labels=NB_LABELS, feat_mult=2, nb_conv_per_level=2,
         dtype=dtype, pool_impl=pool_impl,
-        generator=torch.Generator().manual_seed(0), device='cuda')
+        generator=torch.Generator().manual_seed(seed), device='cuda', **kw)
 
 
 def phase_parity(checks, x, y):
@@ -2269,6 +2320,393 @@ def phase_vae_train(checks, res):
         print(f'  config #4 profile not measured: {type(e).__name__}: {e}')
 
 
+###############################################################################
+# config #4's sparse-imputation VAE (phases 20, 21), the flagship with
+# space_to_depth (22) and with remat, checkpoints and the checked step (23)
+###############################################################################
+
+class SparseVAE(torch.nn.Module):
+    """`benchmarks/vae_sparse.py:33-46`'s SparseVAE from the port's public
+    layers: SpatiallySparse_Dense encode (the masked normal-equations
+    solve), Dense mu and logvar, SampleNormalLogVar, the shared-weight
+    decode. The sparse layer's weights are drawn on `device` from seed 0,
+    the Dense ones on the CPU from seed 1. `noise` replaces the sampler's
+    draw (to run one step on two devices)."""
+
+    def __init__(self, size, latent, device):
+        super().__init__()
+        gen = torch.Generator(device=device).manual_seed(0)
+        self.ssd = nt.layers.SpatiallySparse_Dense(
+            (size,) * 3 + (1,), latent, generator=gen, device=device)
+        gen = torch.Generator().manual_seed(1)
+        self.mu = Dense(latent, latent, generator=gen).to(device)
+        self.logvar = Dense(latent, latent, generator=gen).to(device)
+        self.sample = nt.layers.SampleNormalLogVar()
+
+    def forward(self, yx, training=None, generator=None, noise=None):
+        z = self.ssd(list(yx))
+        mu_lv = [self.mu(z), self.logvar(z)]
+        zs = (self.sample(mu_lv, generator) if noise is None
+              else self.sample.apply(mu_lv, noise))
+        return self.ssd([zs])
+
+
+def sparse_inputs(size, device):
+    """`benchmarks/vae_sparse.py:51-54`: default_rng(1) normal y, and a
+    mask observing every 8th z-slice."""
+    y = np.random.default_rng(1).normal(size=(1, size, size, size, 1))
+    mask = np.zeros((1, size, size, size, 1), np.float32)
+    mask[:, ::8] = 1.
+    return (torch.from_numpy(y.astype(np.float32)).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def sparse_loss(mask):
+    """MSE on the observed voxels (`benchmarks/vae_sparse.py:59-60`)."""
+    def loss(y_true, y_pred):
+        return torch.sum(mask * (y_true - y_pred.reshape(y_true.shape))
+                         ** 2) / torch.sum(mask)
+    return loss
+
+
+def sparse_step_flops(size, latent):
+    """The float32 operations of one sparse VAE step, from its shapes: five
+    [d, D] x [D, d]-sized products in the forward pass (M^T M and
+    inv @ M^T for each of the two W, and the encode's Gram) at 2 D d^2
+    each, and two of the same size each in the backward pass."""
+    return 3 * 5 * 2 * size ** 3 * latent ** 2
+
+
+def no_host_sync(fn):
+    """'' when fn() runs under CUDA's sync debug mode 'error' without a
+    host sync, else the first line of the error it raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fn()
+        return ''
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def timed_steps(step, state, args, n=TRAIN_STEPS):
+    """n calls state, m = step(state, *args), each ended by a synchronise,
+    from zeroed launch counts and peak memory: (state, losses, seconds a
+    step, launch counts, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m['loss'])
+    counts = dict(_build.launches)
+    return (state, [float(v) for v in losses], times, counts,
+            torch.cuda.max_memory_allocated())
+
+
+def report_steps(label, times, peak):
+    """Print the median step ms of steps after the warm-up, vol/s and the
+    peak memory; return the median ms."""
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    print(f'  {label}: step ms (median of steps {WARMUP_STEPS + 1}-'
+          f'{len(times)}) {step_ms:.3f}; all: '
+          + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  {label}: vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+    return step_ms
+
+
+def exact_f32():
+    """TF32 off and deterministic cuDNN, for steps compared bit for bit or
+    within float32 tolerances; returns the flags to restore."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    return flags
+
+
+def restore_flags(flags):
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+
+
+def phase_sparse_check(checks):
+    size, d = SPARSE_CHECK_VOL, SPARSE_CHECK_LATENT
+    print(f'== 20. SpatiallySparse_Dense at {size}^3 with d = {d}: both '
+          f'encode branches and the decode, and one f32 sparse VAE step, '
+          f'card vs CPU', flush=True)
+    checks.check('sparse products in float32',
+                 not torch.backends.cuda.matmul.allow_tf32
+                 and torch.get_float32_matmul_precision() == 'highest',
+                 f'allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, '
+                 f'precision {torch.get_float32_matmul_precision()!r}')
+    shape = (size,) * 3 + (1,)
+    gpu = nt.layers.SpatiallySparse_Dense(
+        shape, d, use_bias=True,
+        generator=torch.Generator(device='cuda').manual_seed(0),
+        device='cuda')
+    cpu = nt.layers.SpatiallySparse_Dense(shape, d, use_bias=True,
+                                          device='cpu')
+    cpu.load_state_dict(gpu.state_dict())
+    y, mask = sparse_inputs(size, 'cpu')
+    rng = np.random.default_rng(2)
+    r_enc = torch.from_numpy(rng.normal(size=(1, d)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(1, d)).astype(np.float32))
+    r_dec = torch.from_numpy(rng.normal(size=(1, *shape)).astype(np.float32))
+
+    def run(layer, device, inputs, weight):
+        layer.zero_grad()
+        leaf = inputs[0].to(device).requires_grad_()
+        out = layer([leaf] + [t.to(device) for t in inputs[1:]])
+        (out * weight.to(device)).sum().backward()
+        return [out.detach().cpu(), leaf.grad.cpu()] + [
+            p.grad.cpu() for p in (layer.mult_kernel, layer.bias_kernel)]
+
+    names = ('values', 'input grad', 'mult_kernel grad', 'bias_kernel grad')
+    keep = sparse._ENCODE_CHUNK_ELEMS
+    try:
+        for branch, limit in (('one-shot', 1 << 62), ('chunked', 0)):
+            sparse._ENCODE_CHUNK_ELEMS = limit
+            got = run(gpu, 'cuda', (y, mask), r_enc)
+            want = run(cpu, 'cpu', (y, mask), r_enc)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            checks.check(f'sparse encode, {branch} branch, card vs CPU',
+                         max(errs) <= 1e-5, ', '.join(
+                             f'{n} {e:.3g}' for n, e in zip(names, errs))
+                         + ' (max abs err over max, limit 1e-5)')
+    finally:
+        sparse._ENCODE_CHUNK_ELEMS = keep
+    got = run(gpu, 'cuda', (x,), r_dec)
+    want = run(cpu, 'cpu', (x,), r_dec)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    checks.check('sparse decode, card vs CPU', max(errs) <= 1e-5, ', '.join(
+        f'{n} {e:.3g}' for n, e in zip(names, errs))
+        + ' (max abs err over max, limit 1e-5)')
+
+    # one step of the sparse VAE on each device, from the same weights
+    # and the same sampling noise: the loss and every gradient
+    models = {dev: SparseVAE(size, d, dev) for dev in ('cuda', 'cpu')}
+    models['cpu'].load_state_dict(models['cuda'].state_dict())
+    noise = torch.randn((1, d), generator=torch.Generator().manual_seed(3))
+    res = {}
+    for dev, model in models.items():
+        yd, md = y.to(dev), mask.to(dev)
+        loss = sparse_loss(md)(yd, model((yd, md), noise=noise.to(dev)))
+        loss.backward()
+        res[dev] = (float(loss), {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()})
+    (lg, gg), (lc, gc) = res['cuda'], res['cpu']
+    checks.check('sparse VAE f32 loss, card vs CPU',
+                 abs(lg - lc) <= 1e-5 * abs(lc),
+                 f'card {lg!r} CPU {lc!r} (rtol 1e-5)')
+    worst = max(rel_err(gg[n], gc[n]) for n in gc)
+    checks.check('sparse VAE f32 grads, card vs CPU', worst <= 1e-4,
+                 f'{len(gc)} tensors, worst max|diff|/max|g| {worst:.3g} '
+                 f'(limit 1e-4)')
+
+
+def phase_sparse_train(checks):
+    size, d = VOL, SPARSE_LATENT
+    print(f'== 21. config #4 sparse VAE (SpatiallySparse_Dense, d = {d}, '
+          f'D = {size}^3), f32, {TRAIN_STEPS} steps', flush=True)
+    t0 = time.perf_counter()
+    model = SparseVAE(size, d, 'cuda')
+    y, mask = sparse_inputs(size, 'cuda')
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f'  parameters {n_par} (mult_kernel {size ** 3} x {d}); weights '
+          f'and data made in {time.perf_counter() - t0:.3f} s', flush=True)
+    state = training.create_train_state(model, training.adam(SPARSE_LR))
+    step = training.make_train_step(sparse_loss(mask))
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    batch = ((y, mask), y)
+    state, losses, times, _, peak = timed_steps(step, state, (batch, gen))
+    checks.check('sparse VAE losses finite', all(np.isfinite(losses)),
+                 ' '.join(f'{v:.6f}' for v in losses))
+    step_ms = report_steps('sparse VAE', times, peak)
+    flops = sparse_step_flops(size, d)
+    # the bytes a step must move: the weights, their gradient and Adam's
+    # two moments read, the weights and moments written
+    nbytes = 7 * 4 * n_par
+    bound, by = bound_ms(nbytes, flops)
+    print(f'  step bound {bound:.3f} ms ({by}: {flops / 1e12:.4f} TFLOP at '
+          f'{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB at '
+          f'{HBM_BYTES_PER_S / 1e12:.2f} TB/s): the step at '
+          f'{bound / step_ms:.3f} of its bound', flush=True)
+    synced = no_host_sync(lambda: step(state, batch, gen))
+    checks.check('sparse VAE step without host sync', not synced,
+                 synced or "sync debug mode 'error' raised nothing")
+    try:
+        report_profile('sparse VAE step',
+                       lambda i: step(state, batch, gen), TRAIN_STEPS)
+    except Exception as e:  # noqa: BLE001  (a reading, not a check)
+        print(f'  sparse VAE profile not measured: {type(e).__name__}: {e}')
+
+
+def phase_s2d(checks, res):
+    vol = S2D_CHECK_VOL
+    print(f'== 22. flagship with space_to_depth=2: one f32 step at {vol}^3, '
+          f'kernels vs plain; {TRAIN_STEPS} bf16 steps at {VOL}^3',
+          flush=True)
+    x, y = flagship_inputs(vol)
+    plain_vs_kernels(
+        checks, 'flagship s2d',
+        lambda impl: (flagship(pool_impl=impl, vol=vol, space_to_depth=2),
+                      nt.losses.SoftDice(check_input_limits=False,
+                                         use_kernel=impl).loss),
+        lambda: ((x, y), None),
+        {'pool2_fwd': 3, 'pool2_bwd': 3, 'dice_sums': 1})
+    for size, c in ((VOL // 2, 16), (VOL // 4, 32), (VOL // 8, 64)):
+        body = pool_cuda.plan((1, size, size, size, c), torch.bfloat16,
+                              (0, 0)).body
+        print(f'  pool2_fwd at [1, {size}^3, {c}] bf16: pool_cuda.plan picks '
+              f'{body!r}')
+    x, y = flagship_inputs()
+    model = flagship(torch.bfloat16, space_to_depth=2)
+    state = training.create_train_state(model, training.adam(1e-3))
+    step = training.make_train_step(
+        nt.losses.SoftDice(check_input_limits=False).loss)
+    state, losses, times, counts, peak = timed_steps(step, state, ((x, y),))
+    checks.check('flagship s2d losses finite', all(np.isfinite(losses)),
+                 ' '.join(f'{v:.6f}' for v in losses))
+    check_step_counts(checks, 'flagship s2d', counts,
+                      {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3,
+                       'dice_sums': 1, 'dice_sums_vec': 1}, TRAIN_STEPS)
+    record_path(res, 's2d', counts, ('pool2_fwd', 'pool2_bwd', 'dice_sums'))
+    report_steps('flagship s2d', times, peak)
+    try:
+        report_profile('flagship s2d step',
+                       lambda i: step(state, (x, y)), TRAIN_STEPS)
+    except Exception as e:  # noqa: BLE001  (a reading, not a check)
+        print(f'  flagship s2d profile not measured: {type(e).__name__}: {e}')
+
+
+def state_tensors(state):
+    """Every parameter, buffer and optimizer tensor of a state, by name."""
+    out = {f'model/{k}': v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()['state'].items():
+        out.update({f'opt/{i}/{k}': v for k, v in st.items()})
+    return out
+
+
+def phase_remat(checks, res):
+    print(f'== 23. flagship with remat=True at {VOL}^3: f32 step vs '
+          f'remat=False, {TRAIN_STEPS} bf16 steps, checkpoints, the checked '
+          f'step', flush=True)
+    x, y = flagship_inputs()
+    flags = exact_f32()
+    try:
+        runs = {}
+        for remat in (False, True):
+            model = flagship(remat=remat)
+            state = training.create_train_state(model, training.adam(1e-3))
+            step = training.make_train_step(
+                nt.losses.SoftDice(check_input_limits=False).loss)
+            state, m = step(state, (x, y))
+            runs[remat] = (float(m['loss']),
+                           {n: p.grad.detach().clone()
+                            for n, p in model.named_parameters()})
+            del model, state
+    finally:
+        restore_flags(flags)
+    (l0, g0), (l1, g1) = runs[False], runs[True]
+    worst = max(float((g1[n] - g0[n]).abs().max() / g0[n].abs().max())
+                for n in g0)
+    checks.check('flagship remat f32 loss', abs(l1 - l0) <= 1e-6 * abs(l0),
+                 f'remat {l1!r} no remat {l0!r} (rtol 1e-6)')
+    checks.check('flagship remat f32 grads', worst <= 1e-6,
+                 f'{len(g0)} tensors, largest max|diff|/max|g| {worst:.3g} '
+                 f'(limit 1e-6); all equal '
+                 f'{all(torch.equal(g1[n], g0[n]) for n in g0)}')
+
+    # the pools sit inside the recomputed encoder, as in JAX: K1 runs in
+    # the forward pass and again in the recomputation
+    loss_fn = nt.losses.SoftDice(check_input_limits=False).loss
+    step = training.make_train_step(loss_fn)
+    peaks, ms = {}, {}
+    for remat in (False, True):
+        state = training.create_train_state(
+            flagship(torch.bfloat16, remat=remat), training.adam(1e-3))
+        state, losses, times, counts, peaks[remat] = timed_steps(
+            step, state, ((x, y),))
+        label = 'flagship remat' if remat else 'flagship no remat'
+        checks.check(f'{label} losses finite', all(np.isfinite(losses)),
+                     ' '.join(f'{v:.6f}' for v in losses))
+        ms[remat] = report_steps(label, times, peaks[remat])
+        if remat:
+            check_step_counts(checks, label, counts,
+                              {'pool2_fwd': 6, 'pool2_fwd_vec': 6,
+                               'pool2_bwd': 3, 'dice_sums': 1,
+                               'dice_sums_vec': 1}, TRAIN_STEPS)
+            record_path(res, 'remat', counts,
+                        ('pool2_fwd', 'pool2_bwd', 'dice_sums'))
+            try:
+                report_profile('flagship remat step',
+                               lambda i: step(state, (x, y)), TRAIN_STEPS)
+            except Exception as e:  # noqa: BLE001  (a reading, not a check)
+                print(f'  flagship remat profile not measured: '
+                      f'{type(e).__name__}: {e}')
+        del state
+    checks.check('remat peak memory below no remat', peaks[True] < peaks[False],
+                 f'{peaks[True]} B against {peaks[False]} B '
+                 f'({peaks[True] / peaks[False]:.4f}); step ms '
+                 f'{ms[True]:.3f} against {ms[False]:.3f}')
+
+    # checkpoints on the card: 2 steps, save, restore into a fresh state
+    # (other weights), 2 steps == 4 steps (deterministic cuDNN)
+    flags = exact_f32()
+    try:
+        def fresh(seed):
+            return training.create_train_state(
+                flagship(torch.bfloat16, seed=seed, remat=True),
+                training.adam(1e-3))
+        ref, *_ = timed_steps(step, fresh(0), ((x, y),), 4)
+        run, *_ = timed_steps(step, fresh(0), ((x, y),), 2)
+        with tempfile.TemporaryDirectory() as tmp:
+            training.save_checkpoint(tmp, run, extra={'next_step': 2})
+            run, extra = training.restore_checkpoint(tmp, fresh(1))
+        run, *_ = timed_steps(step, run, ((x, y),), 2)
+    finally:
+        restore_flags(flags)
+    want, got = state_tensors(ref), state_tensors(run)
+    same = [k for k in want if torch.equal(got[k].cpu(), want[k].cpu())]
+    checks.check('checkpoint round trip on the card',
+                 len(same) == len(want) == len(got) and extra == {
+                     'next_step': 2} and run.step == ref.step == 4,
+                 f'{len(same)} of {len(want)} tensors bit-equal to 4 steps '
+                 f'without a save, extra {extra}, step {run.step}')
+    del ref, run
+
+    # the checked step: no host read inside; err.throw() is the one
+    checked = training.make_checked_train_step(
+        nt.losses.SoftDice(check_input_limits='checkify').loss)
+    state = fresh(0)
+    out = []
+    synced = no_host_sync(lambda: out.append(checked(state, (x, y))))
+    checks.check('checked step without host sync', not synced,
+                 synced or "sync debug mode 'error' raised nothing")
+    msg = out[0][0].get() if out else 'not run'
+    checks.check('checked step, clean: no error', msg is None, f'{msg}')
+    err, _ = checked(state, (x, y * 2))
+    try:
+        err.throw()
+        raised = 'nothing'
+    except nt.checkify.CheckError as e:
+        raised = str(e)
+    want = 'y_true: value outside range [0.0, 1.0] (`check` failed)'
+    checks.check('checked step, Dice input scaled by 2: throw() raises',
+                 raised == want, f'raised {raised!r}')
+
+
 def report_profile(label, fn, first):
     """Wall time, device busy time and idle share of PROFILE_STEPS calls
     fn(first), fn(first + 1), ..., and the device time by kernel."""
@@ -2337,6 +2775,10 @@ def main(argv=None):
         '17': lambda: phase_strip_train(checks, res),
         '18': lambda: phase_vae_check(checks),
         '19': lambda: phase_vae_train(checks, res),
+        '20': lambda: phase_sparse_check(checks),
+        '21': lambda: phase_sparse_train(checks),
+        '22': lambda: phase_s2d(checks, res),
+        '23': lambda: phase_remat(checks, res),
     }
     for name, fn in phases.items():
         if name in run:
@@ -2365,8 +2807,9 @@ def main(argv=None):
           f'histogram call at [1, 128^3] with 16 bins; K1-K3 launches are '
           f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 config #3\'s, '
           f'K10 the MI registration run\'s; `paths` gives K1, K2, K4 and K6 '
-          f'launches on the SynthStrip run (phase 17) and K1 and K2 on the '
-          f'config #4 run (phase 19)')
+          f'launches on the SynthStrip run (phase 17), K1 and K2 on the '
+          f'config #4 run (phase 19), and K1-K3 on the space_to_depth and '
+          f'remat flagship runs (phases 22 and 23)')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}

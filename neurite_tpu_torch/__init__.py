@@ -12,6 +12,7 @@ numpy, never JAX.
 __version__ = '0.1.0'
 
 from neurite_tpu_torch import backend  # noqa: F401
+from neurite_tpu_torch import checkify  # noqa: F401
 from neurite_tpu_torch import py  # noqa: F401
 from neurite_tpu_torch import utils  # noqa: F401
 from neurite_tpu_torch import ops  # noqa: F401

@@ -1,17 +1,20 @@
 """
-Basic layers: negation, rescale, resize, soft quantize, MSE; counterpart of
-`neurite_tpu/layers/basic.py` (reference `neurite/tf/layers.py`). Each is a
-plain function of its input, with no parameters. (The FFT and complex layers
-of `basic.py:102-162` are not ported yet: ROADMAP.md, Queue 1.)
+Basic layers: negation, rescale, resize, soft quantize, MSE, the FFT and
+complex layers; counterpart of `neurite_tpu/layers/basic.py` (reference
+`neurite/tf/layers.py`). Each is a plain function of its input, with no
+parameters.
 """
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from neurite_tpu_torch.py.utils import normalize_axes
 from neurite_tpu_torch.utils import core
 
-__all__ = ['Negate', 'RescaleValues', 'Resize', 'Zoom', 'SoftQuantize', 'MSE']
+__all__ = ['Negate', 'RescaleValues', 'Resize', 'Zoom', 'SoftQuantize', 'MSE',
+           'FFT', 'IFFT', 'FFTShift', 'IFFTShift', 'ComplexToChannels',
+           'ChannelsToComplex']
 
 
 class Negate(nn.Module):
@@ -93,3 +96,66 @@ class MSE(nn.Module):
     def forward(self, x):
         diff = torch.square(x[0] - x[1])
         return torch.mean(diff.reshape(diff.shape[0], -1), -1)
+
+
+def _spatial_axes(axes, x):
+    """`axes` of a batched [B, *spatial, C] tensor, validated to lie among
+    its 1 to 3 spatial axes (None: all of them)."""
+    ndims = x.ndim - 2
+    if ndims not in (1, 2, 3):
+        raise ValueError(f'only 1D, 2D, or 3D supported, got {ndims}D')
+    return normalize_axes(axes, tuple(x.shape), allowed=range(1, ndims + 1),
+                          none_means_all=True)
+
+
+class FFT(nn.Module):
+    """FFT over validated spatial axes; real inputs become complex64 (ref
+    `layers.py:2103-2145`)."""
+
+    def __init__(self, axes=None, inverse=False):
+        super().__init__()
+        self.axes, self.inverse = axes, inverse
+
+    def forward(self, x):
+        return core.fftn(x, axes=_spatial_axes(self.axes, x),
+                         inverse=self.inverse)
+
+
+class IFFT(FFT):
+    """Inverse FFT (ref `layers.py:2148-2161`)."""
+
+    def __init__(self, axes=None):
+        super().__init__(axes=axes, inverse=True)
+
+
+class FFTShift(nn.Module):
+    """fftshift over validated spatial axes (ref `layers.py:2164-2199`)."""
+
+    def __init__(self, axes=None, inverse=False):
+        super().__init__()
+        self.axes, self.inverse = axes, inverse
+
+    def forward(self, x):
+        f = core.ifftshift if self.inverse else core.fftshift
+        return f(x, axes=_spatial_axes(self.axes, x))
+
+
+class IFFTShift(FFTShift):
+    """Inverse fftshift (ref `layers.py:2202-2214`)."""
+
+    def __init__(self, axes=None):
+        super().__init__(axes=axes, inverse=True)
+
+
+class ComplexToChannels(nn.Module):
+    """Complex [..., N] -> real [..., 2N] (ref `layers.py:2217-2235`)."""
+
+    def forward(self, x):
+        return core.complex_to_channels(x)
+
+
+class ChannelsToComplex(nn.Module):
+    """Real [..., 2N] -> complex [..., N] (ref `layers.py:2238-2254`)."""
+
+    def forward(self, x):
+        return core.channels_to_complex(x)

@@ -13,7 +13,7 @@ import warnings
 import numpy as np
 import torch
 
-from neurite_tpu_torch import ops
+from neurite_tpu_torch import checkify, ops
 from neurite_tpu_torch.utils import core
 
 EPSILON = 1e-7  # keras backend epsilon, for formula-level parity
@@ -26,14 +26,19 @@ def _check_limits(x, name, mode=True, lo=0., hi=1.):
 
     mode True: check on the host. For a CUDA tensor this waits for the
         device, so hot training loops pass check_input_limits=False.
-    mode 'checkify': JAX's in-graph check; not ported.
+    mode 'checkify': an in-graph check (`neurite_tpu_torch.checkify.check`):
+        inside `training.make_checked_train_step` it is recorded on the
+        device and raised by the step's `err.throw()`; outside one it
+        raises at once, as JAX's eager `checkify.check` does.
     mode False/None: skip.
     """
     if mode is None or mode is False:
         return
     if mode == 'checkify':
-        raise NotImplementedError(
-            "check_input_limits='checkify' is JAX-only; use True or False")
+        x = x.detach()
+        ok = ((x >= lo) & (x <= hi)).all()
+        checkify.check(ok, f'{name}: value outside range [{lo}, {hi}]')
+        return
     if x.numel() and (x.min().item() < lo or x.max().item() > hi):
         raise ValueError(f'{name}: value outside range [{lo}, {hi}]')
 

@@ -20,6 +20,14 @@ biases), then moved to `device`, so one seed gives the same weights on any
 device. `device` defaults to the card (`backend.default_device()`); the CPU
 runs only when a caller passes device='cpu'. `dtype` is the compute type: each conv casts its input and weights to
 it, as the JAX package does.
+
+`remat=True` recomputes the encoder and the decoder in the backward pass
+(`torch.utils.checkpoint`, as `nn.remat` over the flax `ConvEnc` and
+`ConvDec`): the step stores only their inputs, the skips and the
+bottleneck. The recomputation draws the dropout masks of the forward pass
+again (from a copy of the generator's state before it, leaving the
+generator where the forward pass left it) and does not update the
+BatchNorm running statistics a second time.
 """
 
 import math
@@ -28,10 +36,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from neurite_tpu_torch import backend
 from neurite_tpu_torch.ops import max_pool
 from neurite_tpu_torch.ops.pool import _upsample  # keras UpSamplingND
+from neurite_tpu_torch.utils import core
 
 # std of a standard normal truncated to [-2, 2]; flax's variance_scaling
 # divides by it (jax.nn.initializers.variance_scaling)
@@ -153,7 +163,9 @@ class BatchNorm(nn.Module):
         self.momentum = momentum
         self.epsilon = epsilon
 
-    def forward(self, x, training=False):
+    def forward(self, x, training=False, update_stats=True):
+        """With training, normalize by the batch statistics and, unless
+        update_stats is False, fold them into the running averages."""
         axis = self.axis % x.ndim
         red = tuple(i for i in range(x.ndim) if i != axis)
         shape = [1] * x.ndim
@@ -162,11 +174,12 @@ class BatchNorm(nn.Module):
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(red)
             var = torch.clamp((xf * xf).mean(red) - mean * mean, min=0.)
+        if training and update_stats:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1. - m) * mean)
                 self.var.copy_(m * self.var + (1. - m) * var)
-        else:
+        if not training:
             mean, var = self.mean, self.var
         y = x - mean.reshape(shape)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
@@ -290,7 +303,9 @@ class ConvEnc(nn.Module):
         self.out_channels = ch
         self.to(backend.resolve_device(device))
 
-    def forward(self, x, training=None, generator=None):
+    def forward(self, x, training=None, generator=None, update_stats=True):
+        """update_stats=False leaves the BatchNorm running statistics as
+        they are (a recomputation under remat)."""
         training = self.training if training is None else training
         act = self.act
         skips = []
@@ -313,7 +328,8 @@ class ConvEnc(nn.Module):
                                          generator, self.ndims)
                 x = act(add_layer + x)
             if self.batch_norm is not None:
-                x = getattr(self, f'bn_down_{level}')(x, training)
+                x = getattr(self, f'bn_down_{level}')(x, training,
+                                                      update_stats)
             skips.append(x)
             if level < self.nb_levels - 1:
                 x = max_pool(x, self.pool_size, strides=self.pool_size,
@@ -382,7 +398,10 @@ class ConvDec(nn.Module):
                                         generator=generator)
         self.to(backend.resolve_device(device))
 
-    def forward(self, x, skips=None, training=None, generator=None):
+    def forward(self, x, skips=None, training=None, generator=None,
+                update_stats=True):
+        """update_stats=False leaves the BatchNorm running statistics as
+        they are (a recomputation under remat)."""
         training = self.training if training is None else training
         act = self.act
         if self.use_skip_connections and skips is None:
@@ -407,7 +426,8 @@ class ConvDec(nn.Module):
                     add_layer = act(merge(add_layer))
                 x = act(x + add_layer)
             if self.batch_norm is not None:
-                x = getattr(self, f'bn_up_{level}')(x, training)
+                x = getattr(self, f'bn_up_{level}')(x, training,
+                                                    update_stats)
         return _final_activation(self.likelihood(x), self.final_pred_activation)
 
 
@@ -432,11 +452,42 @@ class AddPrior(nn.Module):
         return post
 
 
+def _remat(fn, generator, *args):
+    """
+    fn(*args, generator=, update_stats=) under `torch.utils.checkpoint`
+    (non-reentrant): its intermediates are recomputed in the backward pass.
+    checkpoint's `preserve_rng_state` covers the global generators only, so
+    the recomputation draws from a copy of `generator` set to its state
+    before the forward pass (the same dropout masks, and `generator` is not
+    advanced again), and leaves the BatchNorm running statistics alone.
+    """
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*a):
+        gen = generator
+        if calls and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        first = not calls
+        calls.append(None)
+        return fn(*a, generator=gen, update_stats=first)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class UNet(nn.Module):
     """
     UNet/hourglass: ConvEnc + ConvDec with skip connections + optional prior
     head (reference `models.py:88-246`). A list of inputs is concatenated on
     the channel axis; `in_channels` counts the channels after that concat.
+
+    space_to_depth=s > 1 folds s^N spatial tiles of the input into channels
+    (`utils.core.space_to_depth`); the decoder predicts nb_labels * s^N
+    channels with a linear head, which are unfolded before the final
+    activation (JAX `models/unet.py:486-552`). remat=True recomputes the
+    encoder and the decoder in the backward pass (see the module's
+    docstring).
     """
 
     def __init__(self, in_channels, ndims, nb_features, nb_levels, conv_size,
@@ -448,12 +499,6 @@ class UNet(nn.Module):
                  dtype=None, space_to_depth=1, conv_impl='auto', remat=False,
                  pool_impl='auto', generator=None, device=None):
         super().__init__()
-        if int(space_to_depth) > 1:
-            raise NotImplementedError(
-                'space_to_depth > 1 is not ported yet (ROADMAP.md, Queue 1)')
-        if remat:
-            raise NotImplementedError(
-                'remat is not ported yet (ROADMAP.md, Queue 1)')
         generator = generator or torch.Generator().manual_seed(0)
         device = backend.resolve_device(device)
         nb_levels = _nb_levels(nb_features, nb_levels)
@@ -461,8 +506,12 @@ class UNet(nn.Module):
         enc_lnf = layer_nb_feats[:n_enc] if layer_nb_feats is not None else None
         dec_lnf = layer_nb_feats[n_enc:] if layer_nb_feats is not None else None
         self.add_prior_layer = add_prior_layer
+        self.final_pred_activation = final_pred_activation
+        self.space_to_depth = int(space_to_depth)
+        self.remat = remat
+        fold = self.space_to_depth ** ndims if self.space_to_depth > 1 else 1
         self.enc = ConvEnc(
-            in_channels, ndims, nb_features, nb_levels, conv_size,
+            in_channels * fold, ndims, nb_features, nb_levels, conv_size,
             feat_mult=feat_mult, pool_size=pool_size, padding=padding,
             dilation_rate_mult=dilation_rate_mult, activation=activation,
             layer_nb_feats=enc_lnf, use_residuals=use_residuals,
@@ -471,11 +520,11 @@ class UNet(nn.Module):
             pool_impl=pool_impl, generator=generator, device=device)
         self.dec = ConvDec(
             self.enc.out_channels, ndims, nb_features, nb_levels, conv_size,
-            nb_labels, feat_mult=feat_mult, pool_size=pool_size,
+            nb_labels * fold, feat_mult=feat_mult, pool_size=pool_size,
             use_skip_connections=True, skip_channels=self.enc.skip_channels,
             padding=padding, dilation_rate_mult=dilation_rate_mult,
             activation=activation, use_residuals=use_residuals,
-            final_pred_activation=('linear' if add_prior_layer
+            final_pred_activation=('linear' if add_prior_layer or fold > 1
                                    else final_pred_activation),
             nb_conv_per_level=nb_conv_per_level, layer_nb_feats=dec_lnf,
             batch_norm=batch_norm, conv_dropout=conv_dropout, dtype=dtype,
@@ -498,8 +547,19 @@ class UNet(nn.Module):
                         f'provided, but got shapes {tuple(spatial)} and '
                         f'{tuple(xi.shape[1:-1])}')
             x = torch.cat(list(x), dim=-1)
-        x, skips = self.enc(x, training=training, generator=generator)
-        pred = self.dec(x, skips, training=training, generator=generator)
+        s2d = self.space_to_depth
+        if s2d > 1:
+            x = core.space_to_depth(x, s2d)
+        if self.remat and torch.is_grad_enabled():
+            x, skips = _remat(self.enc, generator, x, training)
+            pred = _remat(self.dec, generator, x, skips, training)
+        else:
+            x, skips = self.enc(x, training=training, generator=generator)
+            pred = self.dec(x, skips, training=training, generator=generator)
+        if s2d > 1:
+            pred = core.depth_to_space(pred, s2d)
+            if not self.add_prior_layer:
+                pred = _final_activation(pred, self.final_pred_activation)
         if self.add_prior_layer:
             if prior is None:
                 raise ValueError('add_prior_layer requires a prior input')

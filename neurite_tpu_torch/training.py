@@ -1,17 +1,20 @@
 """
-Training loop support: train state, train/eval steps, and a `fit` loop
-with hooks.
+Training loop support: train state, train/eval steps, a `fit` loop with
+hooks, a checked step, checkpoints and profiler traces.
 
-Counterpart of `neurite_tpu/training.py:23-158`. The JAX step is a pure
+Counterpart of `neurite_tpu/training.py`. The JAX step is a pure
 function of an immutable state; here the state holds the model and its
 optimizer, and a step updates both in place (parameters, Adam moments and
 BatchNorm running statistics) and returns the same state object.
 """
 
+import os
 import time
 
 import numpy as np
 import torch
+
+from neurite_tpu_torch import checkify
 
 
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
@@ -128,3 +131,100 @@ def fit(state, train_step, data_iter, nb_steps, seed=0, callbacks=(),
             cb.on_train_end(state)
 
     return state, history
+
+
+def profile_trace(logdir):
+    """
+    A `torch.profiler.profile` context over the host and, where there is
+    one, the card, that writes a TensorBoard trace (`*.pt.trace.json`) to
+    `logdir` when it closes (JAX `training.py:161-168`,
+    `jax.profiler.trace`).
+    """
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(logdir))
+
+
+def annotate_step(step_num):
+    """A `torch.profiler.record_function` span named after the step, to mark
+    steps inside a trace (JAX's `StepTraceAnnotation('train', step_num)`)."""
+    return torch.profiler.record_function(f'train/{step_num}')
+
+
+def make_checked_train_step(loss_fn):
+    """
+    A train step that also returns the outcome of its checks (JAX
+    `training.py:176-197`, checkify): step(state, batch, generator) ->
+    (err, (state, metrics)); `err.throw()` raises `checkify.CheckError` when
+    a check failed, and `err.get()` gives its message.
+
+    The checks, in this order (the first failure is reported): the range
+    checks of losses built with check_input_limits='checkify' (their
+    messages as JAX's, `'{name}: value outside range [{lo}, {hi}]'`), then a
+    non-finite loss, a non-finite gradient, and a non-finite parameter
+    after the update. JAX's float_checks flag the first NaN that any
+    operation of the step makes; these flag a non-finite loss, gradient or
+    parameter only, a coarser net.
+
+    Nothing in the step is read back to the host: the checks are device
+    tensors folded into `err.code`, and reading `err` is the one host read.
+    The state is updated as `make_train_step` updates it, failed check or
+    not.
+    """
+
+    def step(state, batch, generator=None):
+        x, y = _split(batch)
+        model = state.model
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with checkify.collect() as recorded:
+            loss = loss_fn(y, model(x, training=True, generator=generator))
+        loss.backward()
+        recorded.append((torch.isfinite(loss.detach()),
+                         'non-finite value in the loss'))
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.grad is not None]
+        recorded += [(torch.isfinite(p.grad).all(),
+                      f'non-finite gradient of {n}') for n, p in named]
+        state.optimizer.step()
+        state.step += 1
+        recorded += [(torch.isfinite(p.detach()).all(),
+                      f'non-finite value in {n} after the update')
+                     for n, p in named]
+        err = checkify.error(recorded, loss.device)
+        return err, (state, {'loss': loss.detach()})
+
+    return step
+
+
+def save_checkpoint(path, state, extra=None):
+    """
+    Save a full training checkpoint to the directory `path` (made if
+    needed): the model's parameters and buffers (BatchNorm statistics), the
+    optimizer's state (Adam's moments and step counts), `state.step` and
+    `extra` (any picklable value, such as a data position), so that
+    `restore_checkpoint` resumes exactly (JAX `training.py:200-222`).
+    """
+    os.makedirs(path, exist_ok=True)
+    torch.save({'model': state.model.state_dict(),
+                'optimizer': state.optimizer.state_dict(),
+                'step': int(state.step), 'extra': extra},
+               os.path.join(path, 'state.pt'))
+
+
+def restore_checkpoint(path, state):
+    """
+    Load a checkpoint that `save_checkpoint` wrote into `state` (the same
+    model and optimizer, on any device) in place. Returns (state, extra).
+    """
+    # the file holds `extra`, any picklable value save_checkpoint was given
+    ckpt = torch.load(os.path.join(path, 'state.pt'), map_location='cpu',
+                      weights_only=False)
+    state.model.load_state_dict(ckpt['model'])
+    state.optimizer.load_state_dict(ckpt['optimizer'])
+    state.step = ckpt['step']
+    return state, ckpt['extra']

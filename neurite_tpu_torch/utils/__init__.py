@@ -1,13 +1,15 @@
 """
 neurite_tpu_torch.utils — tensor utilities (counterpart of
-`neurite_tpu.utils`).
+`neurite_tpu.utils`): `core` and `spatial` are star-exported, so
+`nt.utils.interpn` and `nt.utils.transform` resolve; `augment` and `vae`
+are submodules.
 """
 from neurite_tpu_torch.utils import core  # noqa: F401
+from neurite_tpu_torch.utils.core import *  # noqa: F401,F403
 from neurite_tpu_torch.utils import augment  # noqa: F401
-from neurite_tpu_torch.utils import spatial  # noqa: F401
-from neurite_tpu_torch.utils import vae  # noqa: F401
-from neurite_tpu_torch.utils.core import (  # noqa: F401
-    batch_channel_flatten, flatten_axes, gaussian_kernel, interpn,
-    logistic, minmax_norm, resize, separable_conv, soft_delta,
-    soft_digitize, soft_quantize, zoom,
+from neurite_tpu_torch.utils.augment import (  # noqa: F401
+    draw_perlin, random_blur_rescale, draw_perlin_full, draw_crop_mask,
 )
+from neurite_tpu_torch.utils import spatial  # noqa: F401
+from neurite_tpu_torch.utils.spatial import *  # noqa: F401,F403
+from neurite_tpu_torch.utils import vae  # noqa: F401

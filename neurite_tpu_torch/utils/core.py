@@ -20,6 +20,23 @@ import torch
 import torch.nn.functional as F
 
 from neurite_tpu_torch import backend
+from neurite_tpu_torch.py.utils import normalize_axes
+
+__all__ = [
+    'setup_device', 'interpn', 'resize', 'zoom', 'map_fn_axis',
+    'volshape_to_ndgrid', 'volshape_to_meshgrid', 'ndgrid', 'meshgrid',
+    'flatten', 'take', 'barycenter',
+    'gaussian_kernel', 'separable_conv', 'subsample_axis',
+    'softmax', 'logtanh', 'arcsinh', 'logistic', 'sigmoid',
+    'logistic_fixed_ends', 'sigmoid_fixed_ends', 'soft_round', 'soft_delta',
+    'odd_shifted_relu', 'minmax_norm', 'whiten', 'perlin_vol',
+    'sub2ind2d', 'prod_n', 'soft_quantize', 'soft_digitize',
+    'batch_channel_flatten', 'flatten_batch_channel', 'flatten_axes',
+    'fftn', 'ifftn', 'fftshift', 'ifftshift',
+    'complex_to_channels', 'channels_to_complex', 'batch_gather',
+    'space_to_depth', 'depth_to_space',
+    'as_generator',
+]
 
 ###############################################################################
 # helpers
@@ -82,6 +99,24 @@ def as_generator(seed, device=None):
     return seed
 
 
+def setup_device(gpuid=None):
+    """
+    The CUDA devices to run on (reference `setup_device`,
+    `neurite/tf/utils/utils.py:38-70`; JAX `utils/core.py:50-63`): every
+    CUDA device, or the one at index `gpuid` (an int, or a string whose
+    first comma-separated entry is one). Raises when there is no CUDA
+    device: the port does not fall back to the CPU on its own.
+    """
+    backend.default_device()
+    devices = [torch.device('cuda', i)
+               for i in range(torch.cuda.device_count())]
+    if gpuid is None or (isinstance(gpuid, str) and gpuid == ''):
+        return devices
+    if isinstance(gpuid, str):
+        gpuid = int(gpuid.split(',')[0])
+    return [devices[int(gpuid)]]
+
+
 def uniform(generator, shape, low, high, device, dtype=torch.float32):
     """low + U[0, 1) * (high - low) on `device` (jax.random.uniform's form);
     low and high may be floats or broadcastable tensors."""
@@ -92,6 +127,9 @@ def uniform(generator, shape, low, high, device, dtype=torch.float32):
 def batch_channel_flatten(x):
     """[B, ..., C] -> [B, V, C] (ref `utils.py:1175-1189`)."""
     return flatten_axes(x, range(1, x.ndim - 1))
+
+
+flatten_batch_channel = batch_channel_flatten
 
 
 def flatten_axes(x, axes):
@@ -271,6 +309,15 @@ def volshape_to_ndgrid(volshape, dtype=torch.int32, device=None):
                     for d in volshape])
 
 
+def volshape_to_meshgrid(volshape, dtype=torch.int32, device=None):
+    """meshgrid ('xy') of ranges over a volume shape (ref `utils.py:354-375`)."""
+    if not all(float(d).is_integer() for d in volshape):
+        raise ValueError('volshape needs to be a list of integers')
+    device = backend.resolve_device(device)
+    return meshgrid(*[torch.arange(int(d), dtype=dtype, device=device)
+                      for d in volshape])
+
+
 def ndgrid(*args):
     """N-D grid with 'ij' indexing (ref `utils.py:378-391`)."""
     return meshgrid(*args, indexing='ij')
@@ -292,6 +339,109 @@ def grid_points(shape, device, dtype=torch.float32):
 def flatten(v):
     """Flatten to 1-D (ref `utils.py:479-490`)."""
     return v.reshape(-1)
+
+
+def take(x, indices, axis):
+    """
+    np.take-like gather along an axis (ref `utils.py:493-509`), as
+    jnp.take: the result is x.shape[:axis] + indices.shape +
+    x.shape[axis + 1:], negative indices count from the end, and an index
+    outside [-n, n) gives NaN (the smallest value for an integer x).
+    """
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    idx = torch.as_tensor(indices, device=x.device)
+    if idx.is_floating_point():
+        raise TypeError('take needs integer indices')
+    idx = idx.long()
+    safe = torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
+    out = x.index_select(axis, safe.reshape(-1)).reshape(
+        *x.shape[:axis], *idx.shape, *x.shape[axis + 1:])
+    valid = ((idx >= -n) & (idx < n)).reshape(
+        *(1,) * axis, *idx.shape, *(1,) * (x.ndim - axis - 1))
+    fill = (float('nan') if out.is_floating_point() or out.is_complex()
+            else torch.iinfo(out.dtype).min)
+    return torch.where(valid, out, torch.full((), fill, dtype=out.dtype,
+                                              device=out.device))
+
+
+def barycenter(x, axes=None, normalize=False, shift_center=False,
+               dtype=torch.float32):
+    """
+    Center of mass of x along `axes` (None: all), computed in float32 on
+    the coordinate grid, optionally normalized to unit length or shifted to
+    the image center; 0 where the mass is 0. Returns [*other axes, len(axes)].
+
+    Parity: reference `neurite/tf/utils/utils.py:512-573` (SynthMorph).
+    """
+    x = x.to(torch.float32)
+    axes_all = range(x.ndim)
+    if axes is None:
+        axes = tuple(axes_all)
+    axes_sub = tuple(ax for ax in axes_all if ax not in axes)
+    if axes_sub:
+        x = x.permute(*axes_sub, *axes)
+    num_dim = len(axes)
+    vol_shape = x.shape[-num_dim:]
+    grid = [np.arange(f, dtype=np.float32) for f in vol_shape]
+    if shift_center:
+        grid = [g - (v - 1) / 2 for g, v in zip(grid, vol_shape)]
+    if normalize:
+        grid = [g / v for g, v in zip(grid, vol_shape)]
+    grid = np.stack(np.meshgrid(*grid, indexing='ij'), axis=-1)
+    grid = device_constant(grid.astype(np.float32), x.device)
+    red = tuple(axes_all)[-num_dim:]
+    x = x[..., None]
+    num = torch.sum(grid * x, dim=red)
+    den = torch.sum(x, dim=red)
+    zero = den == 0
+    out = torch.where(zero, torch.zeros((), device=x.device),
+                      num / torch.where(zero, torch.ones_like(den), den))
+    return out.to(dtype)
+
+
+def map_fn_axis(fn, elems, axis, **kwargs):
+    """
+    Apply `fn` to each slice of `elems` (a tensor, or a list of tensors
+    with one axis each) along `axis`, and stack the results where the
+    mapped axis was: at `axis` (-1: the last axis), clamped to the result's
+    rank, as the JAX package's vmap and `_restore` place it. A list input
+    hands fn a tuple of slices; a list or tuple result is restacked per
+    entry.
+
+    Parity: reference `neurite/tf/utils/utils.py:272-330`; JAX
+    `utils/core.py:236-273`. The slices run one after another.
+    """
+    kwargs.pop('fn_output_signature', None)
+
+    def _restore(ys, ax):
+        y = torch.stack(ys)
+        if ax < 0:
+            ax = y.ndim - 1
+        return torch.movedim(y, 0, min(ax, y.ndim - 1))
+
+    def _mapped(n, get):
+        outs = [fn(get(i)) for i in range(n)]
+        if isinstance(outs[0], (tuple, list)):
+            return [list(o) for o in zip(*outs)], True
+        return outs, False
+
+    if not isinstance(elems, (tuple, list)):
+        if isinstance(axis, (tuple, list)):
+            raise ValueError('axis cannot be list if elements are not list')
+        outs, is_list = _mapped(elems.shape[axis],
+                                lambda i: elems.select(axis, i))
+        if is_list:
+            return [_restore(y, axis) for y in outs]
+        return _restore(outs, axis)
+    if not isinstance(axis, (tuple, list)):
+        axis = [axis] * len(elems)
+    outs, is_list = _mapped(
+        elems[0].shape[axis[0]],
+        lambda i: tuple(e.select(a, i) for e, a in zip(elems, axis)))
+    if is_list:
+        return [_restore(y, a) for y, a in zip(outs, axis)]
+    return _restore(outs, axis[0])
 
 
 def sub2ind2d(siz, subs):
@@ -579,6 +729,70 @@ def soft_delta(x, x0=0., alpha=100, reg='l1'):
     return (1 - logistic(xa, alpha=alpha)) * 2
 
 
+def softmax(x, axis=-1, alpha=1):
+    """Softmax with a temperature-like alpha multiplier (ref
+    `utils.py:833-857`)."""
+    x = alpha * x
+    e = torch.exp(x - torch.amax(x, dim=axis, keepdim=True))
+    return e / torch.sum(e, dim=axis, keepdim=True)
+
+
+def logtanh(x, a=1):
+    """tanh(x) * log(2 + a|x|) (ref `utils.py:860-866`)."""
+    return torch.tanh(x) * torch.log(2 + a * torch.abs(x))
+
+
+def arcsinh(x, alpha=1):
+    """asinh(alpha*x)/alpha (ref `utils.py:869-875`)."""
+    return torch.asinh(x * alpha) / alpha
+
+
+def sigmoid(x):
+    """Standard sigmoid (ref `utils.py:889-890`)."""
+    return logistic(x, x0=0., alpha=1., L=1.)
+
+
+def logistic_fixed_ends(x, start=-1., end=1., L=1., **kwargs):
+    """Logistic linearly corrected so f(start) = 0 and f(end) = L (ref
+    `utils.py:893-916`); x is clipped to [start, end]."""
+    if end <= start:
+        raise ValueError('End of fixed points should be greater than start')
+    x = clip(x, start, end)
+    xv = logistic(x, L=L, **kwargs)
+    sv = logistic(torch.tensor(float(start)), L=L, **kwargs)
+    ev = logistic(torch.tensor(float(end)), L=L, **kwargs)
+    df = end - start
+    corr = (end - x) / df * (-sv.item()) + (x - start) / df * (-ev.item() + L)
+    return xv + corr
+
+
+def sigmoid_fixed_ends(x, start=-1., end=1., L=1., **kwargs):
+    """Sigmoid with fixed ends (ref `utils.py:919-920`); as the reference,
+    it ignores start, end and L and fixes them to (-1, 1, 1)."""
+    del start, end, L, kwargs
+    return logistic_fixed_ends(x, start=-1., end=1., L=1., x0=0., alpha=1.)
+
+
+def soft_round(x, alpha=25):
+    """Differentiable rounding (ref `utils.py:923-926`)."""
+    fx = torch.floor(x)
+    return fx + logistic_fixed_ends(x - fx, start=0., end=1., x0=0.5,
+                                    alpha=alpha)
+
+
+def odd_shifted_relu(x, shift=-0.5, scale=2.0):
+    """Odd-symmetric shifted ReLU (ref `utils.py:944-951`)."""
+    shift, scale = float(shift), float(scale)
+    return scale * torch.relu(x - shift) - scale * torch.relu(-x - shift)
+
+
+def whiten(x, mean=0., std=1.):
+    """Whiten all of x to the given mean and std (population std, ddof 0;
+    ref `utils.py:970-984`)."""
+    x = x - torch.mean(x)
+    return x / torch.std(x, correction=0) * std + mean
+
+
 def soft_quantize(x, bin_centers=None, nb_bins=16, alpha=1,
                   min_clip=-np.inf, max_clip=np.inf, return_log=False):
     """
@@ -608,3 +822,174 @@ def soft_quantize(x, bin_centers=None, nb_bins=16, alpha=1,
 
 
 soft_digitize = soft_quantize
+
+
+###############################################################################
+# other
+###############################################################################
+
+def _perlin_scale_shapes(vol_shape, min_scale, max_scale):
+    if max_scale is None:
+        max_scale = int(np.ceil(np.log2(np.max(vol_shape))))
+    return [tuple(int(s) for s in np.ceil([f / 2 ** i for f in vol_shape]))
+            for i in range(min_scale, max_scale + 1)], max_scale
+
+
+def draw_perlin_vol(vol_shape, min_scale=0, max_scale=None,
+                    wt_type='monotonic', seed=None, device=None):
+    """
+    The draws of `perlin_vol`: the raw scale weights (i + 1 for scale 2^i
+    when monotonic, else U[0, 1) each) and one U[0, 1) volume per scale of
+    ceil(vol_shape / 2^i) voxels, as (wts [n_scales], [vol, ...]).
+
+    The JAX package draws every scale's volume from one key
+    (`keys[n_scales]`, JAX `utils/core.py:733`), so its volumes are
+    prefixes of one stream; these are drawn one after another from the
+    generator.
+    """
+    if wt_type not in ('monotonic', 'random'):
+        raise ValueError(f"wt_type should be in 'monotonic', 'random', got: "
+                         f"{wt_type}")
+    device = backend.resolve_device(device)
+    gen = as_generator(seed, device)
+    shapes, max_scale = _perlin_scale_shapes(vol_shape, min_scale, max_scale)
+    if wt_type == 'monotonic':
+        wts = torch.arange(min_scale + 1, max_scale + 2, dtype=torch.float32,
+                           device=device)
+    else:
+        wts = torch.rand(len(shapes), generator=gen, device=device)
+    return wts, [torch.rand(sc, generator=gen, device=device)
+                 for sc in shapes]
+
+
+def perlin_vol_from_draws(vol_shape, draws, interp_method='linear'):
+    """The apply of `perlin_vol`: each scale's volume resized to vol_shape,
+    weighted by its weight over the weights' sum, summed."""
+    wts, vols = draws
+    wts = (wts / torch.sum(wts)).to(torch.float32)
+    vol = 0
+    for i, rand_vol in enumerate(vols):
+        interp = resize(rand_vol, [vol_shape[d] / rand_vol.shape[d]
+                                   for d in range(len(vol_shape))],
+                        interp_method=interp_method,
+                        new_shape=list(vol_shape))
+        vol = vol + wts[i] * interp
+    return vol
+
+
+def perlin_vol(vol_shape, min_scale=0, max_scale=None, interp_method='linear',
+               wt_type='monotonic', seed=None, device=None):
+    """
+    Legacy multi-scale uniform-noise "Perlin" volume: the sum of upsampled
+    U[0, 1) volumes at dyadic scales 2^min_scale .. 2^max_scale (None: up to
+    the largest side), with monotonic or random weights that sum to 1.
+    `draw_perlin_vol` and `perlin_vol_from_draws` are its draw and apply.
+
+    Parity: reference `neurite/tf/utils/utils.py:991-1065`, JAX
+    `utils/core.py:699-739`.
+    """
+    draws = draw_perlin_vol(vol_shape, min_scale, max_scale, wt_type, seed,
+                            device)
+    return perlin_vol_from_draws(vol_shape, draws, interp_method)
+
+
+def fftn(x, axes=None, inverse=False):
+    """
+    FFT along any axes (None: all); real inputs are promoted to complex64
+    (ref `utils.py:1229-1272`).
+    """
+    axes = normalize_axes(axes, tuple(x.shape), none_means_all=True)
+    if not x.is_complex():
+        x = x.to(torch.complex64)
+    fft = torch.fft.ifftn if inverse else torch.fft.fftn
+    return fft(x, dim=axes)
+
+
+def ifftn(x, axes=None):
+    """Inverse FFT along any axes (ref `utils.py:1275-1277`)."""
+    return fftn(x, axes, inverse=True)
+
+
+def fftshift(x, axes=None):
+    """Shift the zero frequency to the center along `axes` (None: all), as
+    jnp.fft.fftshift."""
+    return torch.fft.fftshift(x, dim=axes)
+
+
+def ifftshift(x, axes=None):
+    """Inverse of `fftshift`, as jnp.fft.ifftshift."""
+    return torch.fft.ifftshift(x, dim=axes)
+
+
+def complex_to_channels(x):
+    """Complex [..., N] -> real [..., 2N], real parts then imaginary (ref
+    `utils.py:1285-1306`)."""
+    if not x.is_complex():
+        raise ValueError('non-complex input passed')
+    return torch.cat((x.real, x.imag), dim=-1)
+
+
+def channels_to_complex(x):
+    """Real [..., 2N] -> complex [..., N], the first half the real parts
+    (ref `utils.py:1309-1341`); anything but float64 is computed in
+    float32, so the result is complex64."""
+    if x.is_complex():
+        raise ValueError('complex input passed')
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.to(torch.float32)
+    real, imag = torch.chunk(x, 2, dim=-1)
+    return torch.complex(real, imag)
+
+
+def batch_gather(reference, indices):
+    """Per-batch-row gather: out[b] = reference[b, indices[b]] (ref
+    `utils.py:1348-1379`)."""
+    indices = torch.as_tensor(indices, device=reference.device).long()
+    rows = torch.arange(reference.shape[0], device=reference.device)
+    return reference[rows.reshape(-1, *(1,) * (indices.ndim - 1)), indices]
+
+
+def space_to_depth(x, block=2, batched=True):
+    """
+    Fold `block`-sized spatial tiles into channels: [B, *spatial, C] ->
+    [B, *spatial / block, C * block^N], the block offsets (in axis order)
+    ahead of the channel. A reshape and a permute, as in the JAX package
+    (`utils/core.py:873-903`), so the numbers are the same.
+    """
+    nd = x.ndim - 1 - int(batched)
+    lead = 1 if batched else 0
+    shape = tuple(x.shape)
+    for d in range(nd):
+        if shape[lead + d] % block:
+            raise ValueError(f'spatial dim {shape[lead + d]} not divisible '
+                             f'by block {block}')
+    split = [shape[0]] if batched else []
+    for d in range(nd):
+        split += [shape[lead + d] // block, block]
+    split += [shape[-1]]
+    x = x.reshape(split)
+    perm = [0] if batched else []
+    perm += [lead + 2 * d for d in range(nd)]
+    perm += [lead + 2 * d + 1 for d in range(nd)]
+    perm += [x.ndim - 1]
+    out_spatial = [shape[lead + d] // block for d in range(nd)]
+    return x.permute(perm).reshape(*shape[:lead], *out_spatial,
+                                   shape[-1] * block ** nd)
+
+
+def depth_to_space(x, block=2, batched=True):
+    """Inverse of `space_to_depth` (JAX `utils/core.py:906-926`)."""
+    nd = x.ndim - 1 - int(batched)
+    lead = 1 if batched else 0
+    shape = tuple(x.shape)
+    c_out = shape[-1] // block ** nd
+    if shape[-1] != c_out * block ** nd:
+        raise ValueError(f'channels {shape[-1]} not divisible by '
+                         f'block^{nd}')
+    x = x.reshape(*shape[:lead + nd], *[block] * nd, c_out)
+    perm = [0] if batched else []
+    for d in range(nd):
+        perm += [lead + d, lead + nd + d]
+    perm += [x.ndim - 1]
+    out_spatial = [shape[lead + d] * block for d in range(nd)]
+    return x.permute(perm).reshape(*shape[:lead], *out_spatial, c_out)

@@ -142,7 +142,9 @@ def test_check_limits():
         nt.losses.SoftDice().loss(torch.from_numpy(t), bad)
     # check_input_limits=False skips the host check, as on the hot path
     nt.losses.SoftDice(check_input_limits=False).loss(torch.from_numpy(t), bad)
-    with pytest.raises(NotImplementedError):
+    # 'checkify' outside a checked step raises at once, as JAX's eager check
+    with pytest.raises(nt.checkify.CheckError,
+                       match=r'x: value outside range \[0.0, 1.0\]'):
         nt.metrics._check_limits(bad, 'x', 'checkify')
     with pytest.raises(ValueError, match='nb_labels'):
         nt.metrics.Dice(dice_type='hard', input_type='max_label')

@@ -172,12 +172,18 @@ def test_module_names_layout_and_conv_impl():
         m = nt.models.unet(device='cpu', **{**BASE, 'conv_size': 1},
                            input_shape=(8, 8, 8, 1), conv_impl=impl)
         assert isinstance(m.enc.conv_downarm_0_0, cls)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
+    # space_to_depth=2 folds 2^3 voxels into the first conv's inputs and
+    # 3 * 2^3 head outputs back into 3 labels; remat keeps the modules
+    m = nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
                        space_to_depth=2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
+    assert m.enc.conv_downarm_0_0.weight.shape[1] == 8
+    assert m.dec.likelihood.weight.shape == (4, 3 * 8)
+    assert m(torch.zeros(1, 8, 8, 8, 1)).shape == (1, 8, 8, 8, 3)
+    m = nt.models.unet(device='cpu', **BASE, input_shape=(8, 8, 8, 1),
                        remat=True)
+    assert dict(m.named_modules()).keys() == dict(
+        nt.models.unet(device='cpu', **BASE,
+                       input_shape=(8, 8, 8, 1)).named_modules()).keys()
 
 
 def test_same_seed_same_weights_and_constructors():
