@@ -21,7 +21,9 @@ launch counts set to 0 just before it and read just after. Phases (phase
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds the kernels (`neurite_tpu_torch/ops/csrc`);
   3. pool: K1/K2 vs the plain pool at the flagship's three pool shapes,
-     config #3's two ([1, 160^3, 8], [1, 80^3, 16]), C = 7 and misaligned
+     config #3's two ([1, 160^3, 8], [1, 80^3, 16]), the space_to_depth=2
+     flagship's three ([1, 64^3, 16], [1, 32^3, 32], [1, 16^3, 64]),
+     C = 7 and misaligned
      views of the flagship's shapes, float32 and bfloat16, on
      half-quantized inputs (ties) with a NaN window: forward and dx must be
      bit-equal (NaN positions equal, every other bit equal), each K1 check
@@ -174,17 +176,28 @@ launch counts set to 0 just before it and read just after. Phases (phase
      one-shot and its chunked branch (`sparse._ENCODE_CHUNK_ELEMS`
      patched) and the decode, values and gradients within 1e-5 of their
      largest magnitude (float32 products of 32^3 terms in another order);
-     TF32 off for them; one f32 sparse VAE step at 32^3 on each device
-     from the same weights and noise: loss within rtol 1e-5, every
+     TF32 off for them; one f32 sparse VAE step at 16^3, d = 16 and at
+     32^3, d = 32 on each device from the same weights and noise: loss
+     within rtol 1e-5 (1 + max |lv| / 2) (the sample exp(lv / 2) noise
+     turns the log-variance's rounding into that relative error), every
      gradient within 1e-4 of its largest magnitude;
  21. config #4's sparse VAE (`benchmarks/vae_sparse.py:33-60`: [1, 128^3,
      1] default_rng(1) noise, every 8th z-slice observed,
      SpatiallySparse_Dense d = 128 encode -> Dense mu and logvar ->
      SampleNormalLogVar -> shared-weight decode, MSE on the observed
-     voxels, Adam 1e-4, f32), 10 steps: finite losses, no host sync in a
-     step (CUDA's sync debug mode), median step ms, vol/s, peak memory, the
-     step's bound from its FLOPs (30 D d^2) and bytes, a profile of 3
-     steps (idle share);
+     voxels, Adam 1e-4, f32), 10 steps. The initial weights' encode solves
+     its masked normal equations (relative residual within 1e-4, latent
+     and log-variance finite); the first loss is finite unless exp(lv / 2)
+     overflows float32, which the benchmark's initial weights make it do
+     at this size (the JAX package's loss is NaN from 64^3 on), so the
+     steps after it run on NaN weights; the layer alone, encode -> decode
+     without the sampler, has a finite loss and finite gradients at full
+     size; step 1 from the initial weights and a fresh Adam state, timed
+     apart 4 times (median ms of the last 3, vol/s, beside the step's
+     bound from its
+     FLOPs (30 D d^2) and bytes); then 10 steps: no host sync in a step
+     (CUDA's sync debug mode), median step ms of the NaN steps, peak
+     memory, a profile of 3 steps (idle share);
  22. the flagship with space_to_depth=2: one f32 step at 64^3 through the
      kernels and one through the plain pools and Dice from the same
      weights (as phase 5: losses within rtol 1e-5, gradients within 1e-4
@@ -202,7 +215,8 @@ launch counts set to 0 just before it and read just after. Phases (phase
      steps; the checked step (`make_checked_train_step`, SoftDice with
      check_input_limits='checkify'): no host sync in a clean step, which
      reports no error, and `throw()` raising JAX's message for a Dice
-     input scaled outside [0, 1].
+     input scaled outside [0, 1]; its finite flags on the card flag NaN
+     and both infinities in f32 and bf16 and no large finite value.
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -252,6 +266,8 @@ VOL = 128
 NB_LABELS = 4
 POOL_SHAPES = [(1, 128, 128, 128, 16), (1, 64, 64, 64, 32), (1, 32, 32, 32, 64)]
 LC_POOL_SHAPES = [(1, 160, 160, 160, 8), (1, 80, 80, 80, 16)]   # config #3
+S2D_POOL_SHAPES = [(1, 64, 64, 64, 16), (1, 32, 32, 32, 32),
+                   (1, 16, 16, 16, 64)]   # the flagship with space_to_depth=2
 L2_BYTES = 50e6     # the H100's L2: a call that moves less stays there
 TRAIN_STEPS = 10
 WARMUP_STEPS = 3
@@ -327,6 +343,9 @@ SPARSE_LATENT = 128
 SPARSE_LR = 1e-4
 SPARSE_CHECK_VOL = 32
 SPARSE_CHECK_LATENT = 32
+SPARSE_STEP_CHECKS = ((16, 16), (32, 32))   # its whole step, card vs CPU
+SPARSE_FIRST_STEPS = 3     # step 1 from the initial weights, timed apart
+                           # after one more as a warm-up
 S2D_CHECK_VOL = 64      # the space_to_depth flagship's f32 step, kernels vs plain
 
 
@@ -497,6 +516,68 @@ def rel_err(a, b):
     return max_abs_err(a, b) / max(float(b[keep].abs().max()), 1e-30)
 
 
+def no_host_sync(fn):
+    """'' when fn() runs under CUDA's sync debug mode 'error' without a
+    host sync, else the first line of the error it raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fn()
+        return ''
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def timed_steps(step, state, args, n=TRAIN_STEPS):
+    """n calls state, m = step(state, *args), each ended by a synchronise,
+    from zeroed launch counts and peak memory: (state, losses, seconds a
+    step, launch counts, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m['loss'])
+    counts = dict(_build.launches)
+    return (state, [float(v) for v in losses], times, counts,
+            torch.cuda.max_memory_allocated())
+
+
+def report_steps(label, times, peak):
+    """Print the median step ms of steps after the warm-up, vol/s and the
+    peak memory; return the median ms."""
+    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
+    print(f'  {label}: step ms (median of steps {WARMUP_STEPS + 1}-'
+          f'{len(times)}) {step_ms:.3f}; all: '
+          + ' '.join(f'{1e3 * t:.2f}' for t in times))
+    print(f'  {label}: vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+    return step_ms
+
+
+def exact_f32():
+    """TF32 off and deterministic cuDNN, for steps compared bit for bit or
+    within float32 tolerances; returns the flags to restore."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    return flags
+
+
+def restore_flags(flags):
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+
+
 def phase_device():
     print('== 1. device', flush=True)
     if not torch.cuda.is_available():
@@ -549,11 +630,14 @@ def phase_pool(checks, res):
     w = (2, 2, 2)
     gen = torch.Generator(device='cuda').manual_seed(3)
     # (shape, layout, the K1 body it must take, its role): the flagship's
-    # and config #5's three levels, config #3's two, then the scalar body at
-    # C = 7 and on misaligned views of the flagship's levels (K1's earlier
-    # body, timed beside the vec body in this call)
+    # and config #5's three levels, config #3's two, the space_to_depth=2
+    # flagship's three, then the scalar body at C = 7 and on misaligned
+    # views of the flagship's levels (K1's earlier body, timed beside the
+    # vec body in this call)
     cases = ([(s, 'contiguous', 'vec', 'flagship') for s in POOL_SHAPES]
              + [(s, 'contiguous', 'vec', 'config #3') for s in LC_POOL_SHAPES]
+             + [(s, 'contiguous', 'vec', 'flagship s2d')
+                for s in S2D_POOL_SHAPES]
              + [((1, 32, 32, 32, 7), 'contiguous', 'scalar', 'C = 7')]
              + [(s, 'misaligned', 'scalar', 'flagship, misaligned')
                 for s in POOL_SHAPES])
@@ -719,12 +803,7 @@ def flagship(dtype=None, pool_impl='auto', vol=VOL, seed=0, **kw):
 
 def phase_parity(checks, x, y):
     print('== 5. flagship f32 step: kernels vs plain', flush=True)
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
+    flags = exact_f32()
     try:
         runs = {}
         for impl in ('kernel', 'plain'):
@@ -759,8 +838,7 @@ def phase_parity(checks, x, y):
                      f'{len(gp)} tensors, worst max|diff|/max|g| {worst:.3g} '
                      f'(limit 1e-4)')
     finally:
-        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = flags
+        restore_flags(flags)
 
 
 def phase_train(checks, res, x, y):
@@ -770,19 +848,8 @@ def phase_train(checks, res, x, y):
     step = training.make_train_step(
         nt.losses.SoftDice(check_input_limits=False).loss)
     gen = torch.Generator(device='cuda').manual_seed(1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.launches.clear()
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, (x, y), gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m['loss'])
-    counts = dict(_build.launches)
-    losses = [float(v) for v in losses]
-    peak = torch.cuda.max_memory_allocated()
+    state, losses, times, counts, peak = timed_steps(step, state,
+                                                     ((x, y), gen))
     checks.check('training losses finite', all(np.isfinite(losses)),
                  ' '.join(f'{v:.6f}' for v in losses))
     want = {'pool2_fwd': 3 * TRAIN_STEPS, 'pool2_bwd': 3 * TRAIN_STEPS,
@@ -793,12 +860,7 @@ def phase_train(checks, res, x, y):
                      f'{got} (expected {n})')
         record_launches(res, name, counts)
     check_vec_bodies(checks, 'flagship', counts)
-    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
-    print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
-          f'{step_ms:.3f}; all: '
-          + ' '.join(f'{1e3 * t:.2f}' for t in times))
-    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory '
-          f'{peak} B ({peak / 2 ** 30:.3f} GiB)', flush=True)
+    report_steps('flagship', times, peak)
     try:
         report_profile('flagship step',
                        lambda i: step(state, (x, y), gen), TRAIN_STEPS)
@@ -1235,16 +1297,10 @@ def phase_synth_train(checks, res):
 
     # the synthesis waits for the host nowhere: CUDA's sync debug mode
     # raises on any call that synchronises the host with the card
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
+    def synth_last():
         with torch.no_grad():
             gen_model(lab, training.step_generator(0, TRAIN_STEPS, 'cuda'))
-        synced = ''
-    except RuntimeError as e:
-        synced = str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode('default')
+    synced = no_host_sync(synth_last)
     checks.check('config #5 synthesis without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
 
@@ -1650,12 +1706,7 @@ def plain_vs_kernels(checks, path, make, step_args, launches):
     same draws (TF32 off, deterministic cuDNN): the losses within rtol
     1e-5, every gradient within 1e-4 of its largest magnitude, the kernel
     run's launches `launches`, the plain run's none."""
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
+    flags = exact_f32()
     try:
         runs = {}
         for impl in ('auto', 'plain'):
@@ -1680,8 +1731,7 @@ def plain_vs_kernels(checks, path, make, step_args, launches):
                      f'(limit 1e-4); all equal '
                      f'{all(torch.equal(gk[n], gp[n]) for n in gp)}')
     finally:
-        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.deterministic) = flags
+        restore_flags(flags)
 
 
 def phase_lc_check(checks):
@@ -2007,15 +2057,7 @@ def phase_reg_train(checks, res):
     print(f'  pairs/s {1e3 / step_ms:.3f}; peak memory {peak} B '
           f'({peak / 2 ** 30:.3f} GiB)', flush=True)
 
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        step()
-        synced = ''
-    except RuntimeError as e:
-        synced = str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode('default')
+    synced = no_host_sync(step)
     checks.check('MI registration step without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
 
@@ -2240,15 +2282,7 @@ def phase_strip_train(checks, res):
     print(f'  synthesis ms (CUDA events, median of calls {WARMUP_STEPS + 1}-'
           f'{TRAIN_STEPS}): {statistics.median(s_ms[WARMUP_STEPS:]):.3f}; '
           f'all: ' + ' '.join(f'{t:.2f}' for t in s_ms), flush=True)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        synth(TRAIN_STEPS)
-        synced = ''
-    except RuntimeError as e:
-        synced = str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode('default')
+    synced = no_host_sync(lambda: synth(TRAIN_STEPS))
     checks.check('SynthStrip synthesis without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
     for label, fn in (('SynthStrip synthesis', synth),
@@ -2289,30 +2323,15 @@ def phase_vae_train(checks, res):
     state = training.create_train_state(model, training.adam(1e-4))
     step = training.make_train_step(mse)
     gen = torch.Generator(device='cuda').manual_seed(1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.launches.clear()
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, (x, x), gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m['loss'])
-    counts = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
+    state, losses, times, counts, peak = timed_steps(step, state,
+                                                     ((x, x), gen))
     checks.check('config #4 losses finite', all(np.isfinite(losses)),
                  ' '.join(f'{v:.6f}' for v in losses))
     check_step_counts(checks, 'config #4', counts,
                       {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3},
                       TRAIN_STEPS)
     record_path(res, 'vae', counts, ('pool2_fwd', 'pool2_bwd'))
-    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
-    print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
-          f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
-    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
-          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
+    report_steps('config #4', times, peak)
     try:
         report_profile('config #4 step', lambda i: step(state, (x, x), gen),
                        TRAIN_STEPS)
@@ -2377,68 +2396,6 @@ def sparse_step_flops(size, latent):
     return 3 * 5 * 2 * size ** 3 * latent ** 2
 
 
-def no_host_sync(fn):
-    """'' when fn() runs under CUDA's sync debug mode 'error' without a
-    host sync, else the first line of the error it raised."""
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        fn()
-        return ''
-    except RuntimeError as e:
-        return str(e).splitlines()[0]
-    finally:
-        torch.cuda.set_sync_debug_mode('default')
-
-
-def timed_steps(step, state, args, n=TRAIN_STEPS):
-    """n calls state, m = step(state, *args), each ended by a synchronise,
-    from zeroed launch counts and peak memory: (state, losses, seconds a
-    step, launch counts, peak bytes)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.launches.clear()
-    losses, times = [], []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        state, m = step(state, *args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m['loss'])
-    counts = dict(_build.launches)
-    return (state, [float(v) for v in losses], times, counts,
-            torch.cuda.max_memory_allocated())
-
-
-def report_steps(label, times, peak):
-    """Print the median step ms of steps after the warm-up, vol/s and the
-    peak memory; return the median ms."""
-    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
-    print(f'  {label}: step ms (median of steps {WARMUP_STEPS + 1}-'
-          f'{len(times)}) {step_ms:.3f}; all: '
-          + ' '.join(f'{1e3 * t:.2f}' for t in times))
-    print(f'  {label}: vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
-          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
-    return step_ms
-
-
-def exact_f32():
-    """TF32 off and deterministic cuDNN, for steps compared bit for bit or
-    within float32 tolerances; returns the flags to restore."""
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.deterministic)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    return flags
-
-
-def restore_flags(flags):
-    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.deterministic) = flags
-
-
 def phase_sparse_check(checks):
     size, d = SPARSE_CHECK_VOL, SPARSE_CHECK_LATENT
     print(f'== 20. SpatiallySparse_Dense at {size}^3 with d = {d}: both '
@@ -2465,7 +2422,7 @@ def phase_sparse_check(checks):
 
     def run(layer, device, inputs, weight):
         layer.zero_grad()
-        leaf = inputs[0].to(device).requires_grad_()
+        leaf = inputs[0].to(device).detach().requires_grad_()
         out = layer([leaf] + [t.to(device) for t in inputs[1:]])
         (out * weight.to(device)).sum().backward()
         return [out.detach().cpu(), leaf.grad.cpu()] + [
@@ -2493,25 +2450,39 @@ def phase_sparse_check(checks):
         + ' (max abs err over max, limit 1e-5)')
 
     # one step of the sparse VAE on each device, from the same weights
-    # and the same sampling noise: the loss and every gradient
-    models = {dev: SparseVAE(size, d, dev) for dev in ('cuda', 'cpu')}
-    models['cpu'].load_state_dict(models['cuda'].state_dict())
-    noise = torch.randn((1, d), generator=torch.Generator().manual_seed(3))
-    res = {}
-    for dev, model in models.items():
-        yd, md = y.to(dev), mask.to(dev)
-        loss = sparse_loss(md)(yd, model((yd, md), noise=noise.to(dev)))
-        loss.backward()
-        res[dev] = (float(loss), {n: p.grad.cpu()
-                                  for n, p in model.named_parameters()})
-    (lg, gg), (lc, gc) = res['cuda'], res['cpu']
-    checks.check('sparse VAE f32 loss, card vs CPU',
-                 abs(lg - lc) <= 1e-5 * abs(lc),
-                 f'card {lg!r} CPU {lc!r} (rtol 1e-5)')
-    worst = max(rel_err(gg[n], gc[n]) for n in gc)
-    checks.check('sparse VAE f32 grads, card vs CPU', worst <= 1e-4,
-                 f'{len(gc)} tensors, worst max|diff|/max|g| {worst:.3g} '
-                 f'(limit 1e-4)')
+    # and the same sampling noise: the loss and every gradient. The sample
+    # z = mu + exp(lv / 2) noise turns a relative rounding e of the encode
+    # into e (1 + |lv| / 2) of z, and the benchmark's initial log-variance
+    # grows with the volume (its largest about 48 at 32^3, 190 at 64^3 in
+    # the JAX package, where exp(lv / 2) overflows): so the loss is held
+    # to 1e-5 (1 + max |lv| / 2)
+    for size, d in SPARSE_STEP_CHECKS:
+        y, mask = sparse_inputs(size, 'cpu')
+        models = {dev: SparseVAE(size, d, dev) for dev in ('cuda', 'cpu')}
+        models['cpu'].load_state_dict(models['cuda'].state_dict())
+        noise = torch.randn((1, d),
+                            generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            lv_max = float(models['cpu'].logvar(
+                models['cpu'].ssd([y, mask])).abs().max())
+        res = {}
+        for dev, model in models.items():
+            yd, md = y.to(dev), mask.to(dev)
+            loss = sparse_loss(md)(yd, model((yd, md), noise=noise.to(dev)))
+            loss.backward()
+            res[dev] = (float(loss.detach()),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()})
+        (lg, gg), (lc, gc) = res['cuda'], res['cpu']
+        rtol = 1e-5 * (1 + lv_max / 2)
+        checks.check(f'sparse VAE f32 loss at {size}^3, d = {d}, card vs CPU',
+                     abs(lg - lc) <= rtol * abs(lc),
+                     f'card {lg!r} CPU {lc!r}, relative difference '
+                     f'{abs(lg - lc) / abs(lc):.3g} (max |lv| {lv_max:.4g}, '
+                     f'rtol {rtol:.3g})')
+        worst = max(rel_err(gg[n], gc[n]) for n in gc)
+        checks.check(f'sparse VAE f32 grads at {size}^3, card vs CPU',
+                     worst <= 1e-4, f'{len(gc)} tensors, worst '
+                     f'max|diff|/max|g| {worst:.3g} (limit 1e-4)')
 
 
 def phase_sparse_train(checks):
@@ -2525,14 +2496,70 @@ def phase_sparse_train(checks):
     n_par = sum(p.numel() for p in model.parameters())
     print(f'  parameters {n_par} (mult_kernel {size ** 3} x {d}); weights '
           f'and data made in {time.perf_counter() - t0:.3f} s', flush=True)
-    state = training.create_train_state(model, training.adam(SPARSE_LR))
+    # the initial weights' forward: the encode solves its masked normal
+    # equations, A^T m (A z - y) = 0 with A = W^T, whose A z is the decode
+    # of z; and the sampler's log-variance
+    with torch.no_grad():
+        z = model.ssd([y, mask])
+        w = model.ssd.decode_matrix()
+        normal = (mask * (model.ssd([z]) - y)).reshape(1, -1) @ w.T
+        resid = float(normal.norm() / ((mask * y).reshape(1, -1) @ w.T).norm())
+        lv = model.logvar(z)
+        lv_max = float(lv.max())
+        finite = bool(torch.isfinite(z).all() & torch.isfinite(lv).all())
+        del w, normal
+    checks.check('sparse VAE encode solves its normal equations',
+                 finite and resid <= 1e-4,
+                 f'latent and log-variance finite {finite}, |A^T m (A z - y)| '
+                 f'/ |A^T m y| {resid:.3g} (limit 1e-4), max |z| '
+                 f'{float(z.abs().max()):.4g}')
+    # the sparse layer alone, encode then decode with the sampler left
+    # out: its loss and gradients at full size from the initial weights
+    rec = sparse_loss(mask)(y, model.ssd([model.ssd([y, mask])]))
+    names, params = zip(*model.ssd.named_parameters())
+    grads = torch.autograd.grad(rec, params)
+    g_max = [float(g.abs().max()) for g in grads]
+    rec = float(rec.detach())
+    checks.check('sparse encode -> decode loss and gradients finite',
+                 bool(np.isfinite(rec)) and all(np.isfinite(g_max)),
+                 f'loss {rec:.6g}; largest |gradient| '
+                 + ', '.join(f'{n} {g:.4g}' for n, g in zip(names, g_max)))
+    del rec, grads
+    # exp(lv / 2) overflows float32 past lv / 2 = ln(max float32): the loss
+    # is then not finite, as the JAX package's is from 64^3 on, and every
+    # step after the first runs on NaN weights. So step 1, from the initial
+    # (finite) weights and a fresh Adam state, is timed apart, repeated
+    overflow = lv_max / 2 > math.log(torch.finfo(torch.float32).max)
     step = training.make_train_step(sparse_loss(mask))
     gen = torch.Generator(device='cuda').manual_seed(9)
     batch = ((y, mask), y)
+    init = [p.detach().clone() for p in model.parameters()]
+
+    def fresh_state():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+        return training.create_train_state(model, training.adam(SPARSE_LR))
+
+    firsts = []
+    for _ in range(1 + SPARSE_FIRST_STEPS):
+        _, first, times, _, _ = timed_steps(step, fresh_state(), (batch, gen),
+                                            1)
+        firsts.append(1e3 * times[0])
+    step_ms = statistics.median(firsts[1:])
+    print(f'  sparse VAE step 1 from the initial weights, from a fresh state '
+          f'each time: ms ' + ' '.join(f'{t:.3f}' for t in firsts)
+          + f'; median of the last {SPARSE_FIRST_STEPS} {step_ms:.3f} '
+          f'({1e3 / step_ms:.3f} vol/s); its loss {first[0]:.6g}', flush=True)
+    state = fresh_state()
+    init.clear()
     state, losses, times, _, peak = timed_steps(step, state, (batch, gen))
-    checks.check('sparse VAE losses finite', all(np.isfinite(losses)),
-                 ' '.join(f'{v:.6f}' for v in losses))
-    step_ms = report_steps('sparse VAE', times, peak)
+    checks.check('sparse VAE first loss finite unless the sampler overflows',
+                 bool(np.isfinite(losses[0])) != overflow,
+                 f'max log-variance {lv_max:.4g} (exp(lv / 2) overflows '
+                 f'{overflow}); losses ' + ' '.join(f'{v:.6g}' for v in losses))
+    nan_steps = ' (NaN weights from step 2)' if overflow else ''
+    report_steps('sparse VAE' + nan_steps, times, peak)
     flops = sparse_step_flops(size, d)
     # the bytes a step must move: the weights, their gradient and Adam's
     # two moments read, the weights and moments written
@@ -2540,13 +2567,13 @@ def phase_sparse_train(checks):
     bound, by = bound_ms(nbytes, flops)
     print(f'  step bound {bound:.3f} ms ({by}: {flops / 1e12:.4f} TFLOP at '
           f'{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB at '
-          f'{HBM_BYTES_PER_S / 1e12:.2f} TB/s): the step at '
+          f'{HBM_BYTES_PER_S / 1e12:.2f} TB/s): step 1 at '
           f'{bound / step_ms:.3f} of its bound', flush=True)
     synced = no_host_sync(lambda: step(state, batch, gen))
     checks.check('sparse VAE step without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
     try:
-        report_profile('sparse VAE step',
+        report_profile('sparse VAE step' + nan_steps,
                        lambda i: step(state, batch, gen), TRAIN_STEPS)
     except Exception as e:  # noqa: BLE001  (a reading, not a check)
         print(f'  sparse VAE profile not measured: {type(e).__name__}: {e}')
@@ -2565,11 +2592,6 @@ def phase_s2d(checks, res):
                                          use_kernel=impl).loss),
         lambda: ((x, y), None),
         {'pool2_fwd': 3, 'pool2_bwd': 3, 'dice_sums': 1})
-    for size, c in ((VOL // 2, 16), (VOL // 4, 32), (VOL // 8, 64)):
-        body = pool_cuda.plan((1, size, size, size, c), torch.bfloat16,
-                              (0, 0)).body
-        print(f'  pool2_fwd at [1, {size}^3, {c}] bf16: pool_cuda.plan picks '
-              f'{body!r}')
     x, y = flagship_inputs()
     model = flagship(torch.bfloat16, space_to_depth=2)
     state = training.create_train_state(model, training.adam(1e-3))
@@ -2705,6 +2727,16 @@ def phase_remat(checks, res):
     want = 'y_true: value outside range [0.0, 1.0] (`check` failed)'
     checks.check('checked step, Dice input scaled by 2: throw() raises',
                  raised == want, f'raised {raised!r}')
+    # the gradient and parameter checks' flags, one fused reduction
+    t = [torch.tensor(v, device='cuda') for v in (
+        [1., float('nan')], [float('inf')] * 3, [-float('inf')],
+        [3e38] * 1000, [0.] * 4099)]
+    flags = {str(dtype)[6:]: training._all_finite([v.to(dtype) for v in t])
+             .tolist() for dtype in (torch.float32, torch.bfloat16)}
+    want = [False, False, False, True, True]
+    checks.check('checked step finite flags on the card',
+                 all(f == want for f in flags.values()),
+                 f'{flags} (NaN, inf, -inf, 3e38, zeros)')
 
 
 def report_profile(label, fn, first):

@@ -78,8 +78,8 @@ class Error:
 def error(recorded, device):
     """The Error of the recorded (ok, message) pairs, the first failure in
     the order they were recorded; computed on `device`, with no host read."""
-    code = torch.zeros((), dtype=torch.int32, device=device)
-    for i in range(len(recorded) - 1, -1, -1):
-        ok = recorded[i][0].to(device)
-        code = torch.where(ok, code, torch.full_like(code, i + 1))
-    return Error(code, [m for _, m in recorded])
+    if not recorded:
+        return Error(torch.zeros((), dtype=torch.int32, device=device), [])
+    oks = torch.stack([ok.to(device) for ok, _ in recorded])
+    code = torch.where(oks.all(), 0, (~oks).int().argmax() + 1)
+    return Error(code.int(), [m for _, m in recorded])

@@ -155,6 +155,18 @@ def annotate_step(step_num):
     return torch.profiler.record_function(f'train/{step_num}')
 
 
+def _all_finite(tensors):
+    """A boolean vector, one flag a tensor: True where it holds no NaN and
+    no infinity. From each tensor's largest magnitude in float32, which a
+    NaN or an infinity makes non-finite and finite values never overflow
+    (one fused reduction for the list where the device allows; an empty
+    tensor, which has no largest magnitude, counts as one zero)."""
+    norms = torch._foreach_norm([t if t.numel() else t.new_zeros(1)
+                                 for t in tensors], float('inf'),
+                                dtype=torch.float32)
+    return torch.isfinite(torch.stack(norms))
+
+
 def make_checked_train_step(loss_fn):
     """
     A train step that also returns the outcome of its checks (JAX
@@ -170,33 +182,29 @@ def make_checked_train_step(loss_fn):
     operation of the step makes; these flag a non-finite loss, gradient or
     parameter only, a coarser net.
 
-    Nothing in the step is read back to the host: the checks are device
-    tensors folded into `err.code`, and reading `err` is the one host read.
-    The state is updated as `make_train_step` updates it, failed check or
-    not.
+    The step is `make_train_step`'s, run inside `checkify.collect()`;
+    nothing in it is read back to the host: the checks are device tensors
+    folded into `err.code`, and reading `err` is the one host read. The
+    state is updated as `make_train_step` updates it, failed check or not
+    (the gradients stay in `.grad`, so they are checked after the update).
     """
+    base = make_train_step(loss_fn)
 
     def step(state, batch, generator=None):
-        x, y = _split(batch)
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
         with checkify.collect() as recorded:
-            loss = loss_fn(y, model(x, training=True, generator=generator))
-        loss.backward()
-        recorded.append((torch.isfinite(loss.detach()),
-                         'non-finite value in the loss'))
-        named = [(n, p) for n, p in model.named_parameters()
+            state, metrics = base(state, batch, generator)
+        loss = metrics['loss']
+        recorded.append((torch.isfinite(loss), 'non-finite value in the loss'))
+        named = [(n, p) for n, p in state.model.named_parameters()
                  if p.grad is not None]
-        recorded += [(torch.isfinite(p.grad).all(),
-                      f'non-finite gradient of {n}') for n, p in named]
-        state.optimizer.step()
-        state.step += 1
-        recorded += [(torch.isfinite(p.detach()).all(),
-                      f'non-finite value in {n} after the update')
-                     for n, p in named]
-        err = checkify.error(recorded, loss.device)
-        return err, (state, {'loss': loss.detach()})
+        if named:
+            names, params = zip(*named)
+            recorded += zip(_all_finite([p.grad for p in params]).unbind(),
+                            [f'non-finite gradient of {n}' for n in names])
+            recorded += zip(_all_finite([p.detach() for p in params]).unbind(),
+                            [f'non-finite value in {n} after the update'
+                             for n in names])
+        return checkify.error(recorded, loss.device), (state, metrics)
 
     return step
 

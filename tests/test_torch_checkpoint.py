@@ -152,6 +152,43 @@ def test_checked_step_flags_the_update():
     assert err.get() == f'non-finite value in {first} after the update'
 
 
+def test_checked_step_flags_a_gradient():
+    """A loss that stays finite with a NaN gradient (0 * sqrt at 0): the
+    first parameter's gradient is reported."""
+    x, y = (torch.from_numpy(a) for a in _batch(2))
+    model = nt.models.unet(device='cpu', **CFG)
+    state = training.create_train_state(model, training.adam(1e-3))
+    dice = nt.losses.SoftDice().loss
+
+    def loss(t, p):
+        return dice(t, p) + 0. * torch.sqrt(p - p).sum()
+
+    err, (_, metrics) = training.make_checked_train_step(loss)(state, (x, y))
+    assert np.isfinite(float(metrics['loss']))
+    first = next(n for n, _ in model.named_parameters())
+    assert err.get() == f'non-finite gradient of {first}'
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_all_finite_flags_each_tensor(dtype):
+    """NaN and both infinities are flagged; large finite values (whose
+    squares overflow float32) and empty tensors are not."""
+    t = [torch.tensor([1., float('nan')]), torch.tensor([float('inf'), 1.]),
+         torch.tensor([-float('inf')]), torch.full((1000,), 3e38),
+         torch.zeros(0), torch.ones(3)]
+    flags = training._all_finite([v.to(dtype) for v in t])
+    assert flags.tolist() == [False, False, False, True, True, True]
+
+
+def test_error_reports_the_first_failed_check():
+    ok, bad = torch.tensor(True), torch.tensor(False)
+    assert checkify.error([], 'cpu').get() is None
+    assert checkify.error([(ok, 'a'), (ok, 'b')], 'cpu').get() is None
+    err = checkify.error([(ok, 'a'), (bad, 'b'), (bad, 'c')], 'cpu')
+    assert err.code.dtype == torch.int32 and int(err.code) == 2
+    assert err.get() == 'b'
+
+
 def test_checkify_outside_a_checked_step_raises_like_jax():
     x, y = _batch(3)
     bad = y * 2.

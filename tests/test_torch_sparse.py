@@ -241,7 +241,8 @@ def test_sparse_vae_adam_steps_match_jax():
         out = tm((yt, mt), _t(noise))
         loss = torch.sum(mt * (yt - out.reshape(yt.shape)) ** 2) / mt.sum()
         loss.backward()
-        np.testing.assert_allclose(float(loss), float(lj), rtol=1e-5)
+        np.testing.assert_allclose(float(loss.detach()), float(lj),
+                                   rtol=1e-5)
         gt = _leaves(convert.to_flax_params(tm, grad=True))
         for p, g in _leaves(gj).items():
             _rel_close(gt[p], g, 1e-4)
@@ -250,3 +251,37 @@ def test_sparse_vae_adam_steps_match_jax():
         for p, v in _leaves(params).items():
             # Adam moves each entry by ~1e-4 a step; its float32 rounding
             _rel_close(after[p], v, 1e-5)
+
+
+def test_benchmark_weights_overflow_the_sampler_in_both_packages():
+    """At 64^3, d = 64, the benchmark's initial weights give a log-variance
+    near 190, so exp(lv / 2) overflows float32 and the loss is NaN in both
+    packages alike (the 128^3, d = 128 step of `chip_smoke.py` phase 21 is
+    further past it): the port reproduces it, and its encode, mu and
+    log-variance stay finite and agree with the flax model's."""
+    size, latent = 64, 64
+    shape = (size,) * 3 + (1,)
+    y = np.random.default_rng(1).normal(size=(1, *shape)).astype(np.float32)
+    mk = np.zeros((1, *shape), np.float32)
+    mk[:, ::8] = 1.
+    jm = JaxSparseVAE(shape=shape, latent=latent)
+    params = jm.init({'params': jax.random.PRNGKey(0),
+                      'sample': jax.random.PRNGKey(9)},
+                     (jnp.asarray(y), jnp.asarray(mk)))['params']
+    out, inter = jax.jit(lambda p: jm.apply(
+        {'params': p}, (y, mk), rngs={'sample': jax.random.PRNGKey(5)},
+        capture_intermediates=True))(params)
+    inter = inter['intermediates']
+    jloss = jnp.sum(mk * (y - out.reshape(y.shape)) ** 2) / jnp.sum(mk)
+    tm = SparseVAE(shape, latent, 'cpu')
+    convert.load_flax_params(tm, params)
+    with torch.no_grad():
+        z = tm.ssd([_t(y), _t(mk)])
+        lv = tm.logvar(z)
+        noise = torch.ones(1, latent)
+        loss = torch.sum(_t(mk) * (_t(y) - tm((_t(y), _t(mk)), noise)
+                                   .reshape(y.shape)) ** 2) / _t(mk).sum()
+    _rel_close(z, inter['ssd']['__call__'][0], 1e-4)
+    _rel_close(lv, inter['logvar']['__call__'][0], 1e-4)
+    assert float(lv.max()) / 2 > np.log(np.finfo(np.float32).max)
+    assert not np.isfinite(float(jloss)) and not np.isfinite(float(loss))
