@@ -4,7 +4,7 @@ Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases 1,2,10,13   # only the phases named
 
-Drives the port's nine paths through their public entry points: the
+Drives the port's paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
 nb_conv_per_level=2, conv_size=3, nb_labels=4, 128^3, batch 1, SoftDice,
 Adam 1e-3), the config #5 synthesis -> UNet training step, the config #3
@@ -13,9 +13,11 @@ UNet -> LocallyConnected3D head training step, the MI registration step
 synthesis -> FreeSurfer's mri_synthstrip UNet), the config #4 conv VAE
 training step (`bench.py:376-389`), config #4's sparse-imputation VAE step
 (`benchmarks/vae_sparse.py`), and the flagship with space_to_depth=2 and
-with remat=True (with checkpoints and the checked step); and checks every
-hand-written kernel on them against its plain PyTorch version, each path's
-launch counts set to 0 just before it and read just after. Phases (phase
+with remat=True (with checkpoints and the checked step), whole-volume
+patch inference of a 256^3 scan through the flagship (the serve path), and
+an EncoderNet training step; and checks every hand-written kernel on them
+against its plain PyTorch version, each path's launch counts set to 0 just
+before it and read just after. Phases (phase
 1 runs whatever --phases names):
 
   1. device: the card, its power limit, the torch and CUDA versions;
@@ -216,7 +218,33 @@ launch counts set to 0 just before it and read just after. Phases (phase
      check_input_limits='checkify'): no host sync in a clean step, which
      reports no error, and `throw()` raising JAX's message for a Dice
      input scaled outside [0, 1]; its finite flags on the card flag NaN
-     and both infinities in f32 and bf16 and no large finite value.
+     and both infinities in f32 and bf16 and no large finite value;
+ 24. the serve path: the bf16 flagship (weights from seed 0, eval mode)
+     over a [256^3, 1] default_rng(0) volume in 27 patches of 128^3 at
+     stride 64. On the card (`utils.seg.predict_volume_device`, overlap
+     mean accumulated in bf16): launches exactly K1 81 a volume, all by
+     its 'vec' body, and no other kernel; the prediction [256^3, 4] bf16,
+     finite, its labels' probabilities summing to 1 within 2e-2; no host
+     sync; ms per volume (median of 3 after a warm-up), patches/s, peak
+     memory, a profile of one volume (idle share); bit-equal to the same
+     run with pool_impl='plain' (which launches nothing); with stride =
+     patch size `quilt_device` of `patch_gen` returns the volume bit for
+     bit; `quilt_device` of the 27 predictions in f32 within 1e-6
+     relative of the host `tiling.quilt(agg='mean')` (float64), the bf16
+     run's accumulation within 2^-6 of that quilt. Host-driven
+     (`utils.seg.predict_volumes`, one patch at a time to the card, the
+     host nan-median quilt): wall time once and the quilt's share, labels
+     finite in [0, 4). Then a 32^3 volume in 16^3 patches at stride 8
+     through a 2-level f32 UNet, card vs CPU, within 1e-5 relative;
+ 25. one EncoderNet training step (nb_features=16, nb_levels=4,
+     feat_mult=2, max-pool route, f32, CCE, Adam 1e-3) at 64^3 on the card
+     and on the CPU from the same weights (TF32 off, deterministic cuDNN):
+     loss within rtol 1e-5, gradients within 1e-4 of their largest
+     magnitude, launches exactly K1 3 ('vec') and K2 3 on the card;
+     HyperConv3D (per-sample kernels (3, 2, 3), stride 2, 'same', ELU)
+     forward within 1e-5 and its three gradients within 1e-4 relative,
+     card vs CPU; MeanStream and CovStream over 5 batches, outputs and
+     statistics card vs CPU within 1e-5 relative.
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -232,8 +260,8 @@ the port.
 
 Prints one line per check, then a JSON line of the kernels (each with its
 path run's launches and body launches, `body_launches`, and in `paths` its
-launches and body launches on the SynthStrip, config #4, space_to_depth
-and remat runs), and last
+launches and body launches on the SynthStrip, config #4, space_to_depth,
+remat, serve (one volume) and classify (one step) runs), and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
 machine without a CUDA device. Run with --phases, a kernel's fields that
 no phase of the run measured are null, and both JSON lines carry the
@@ -257,10 +285,11 @@ import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
 from neurite_tpu_torch.layers import sparse
 from neurite_tpu_torch.models.ae import Dense
+from neurite_tpu_torch.io import tiling
 from neurite_tpu_torch.ops import (_build, blur, blur_cuda, dice_red, lc_cuda,
                                    mi_hist, mi_hist_cuda, pool, pool_cuda,
                                    warp_cuda)
-from neurite_tpu_torch.utils import core, spatial
+from neurite_tpu_torch.utils import core, seg, spatial
 
 VOL = 128
 NB_LABELS = 4
@@ -318,11 +347,14 @@ PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
                                    'blur')),
              'vae': ('19', ('pool2_fwd', 'pool2_bwd')),
              's2d': ('22', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
-             'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums'))}
+             'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'serve': ('24', ('pool2_fwd',)),
+             'classify': ('25', ('pool2_fwd', 'pool2_bwd'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
-          '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23')
+          '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23',
+          '24', '25')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -347,6 +379,16 @@ SPARSE_STEP_CHECKS = ((16, 16), (32, 32))   # its whole step, card vs CPU
 SPARSE_FIRST_STEPS = 3     # step 1 from the initial weights, timed apart
                            # after one more as a warm-up
 S2D_CHECK_VOL = 64      # the space_to_depth flagship's f32 step, kernels vs plain
+# the serve path: a conformed 256^3 scan through the flagship in 128^3
+# patches at stride 64 (a 3^3 grid); checked card vs CPU at 32^3 with 16^3
+# patches at stride 8 through a 2-level f32 UNet
+SERVE_VOL = 256
+SERVE_PATCH = 128
+SERVE_STRIDE = 64
+SERVE_CHECK = (32, 16, 8)
+SERVE_REPS = 3
+CLASSIFY_VOL = 64       # the EncoderNet step, card vs CPU
+STREAM_BATCHES = (2, 3, 1, 4, 2)
 
 
 class Checks:
@@ -2159,11 +2201,11 @@ def record_path(res, path, counts, names):
                               for c in BODY_COUNTERS[name]}}
 
 
-def check_step_counts(checks, path, counts, per_step, steps):
+def check_step_counts(checks, path, counts, per_step, steps, unit='step'):
     for name, n in per_step.items():
         got, want = counts.get(name, 0), n * steps
         checks.check(f'{path} launches {name}', got == want and got > 0,
-                     f'{got} (expected {n} per step)')
+                     f'{got} (expected {n} per {unit})')
 
 
 def phase_strip_check(checks):
@@ -2739,27 +2781,289 @@ def phase_remat(checks, res):
                  f'{flags} (NaN, inf, -inf, 3e38, zeros)')
 
 
-def report_profile(label, fn, first):
-    """Wall time, device busy time and idle share of PROFILE_STEPS calls
-    fn(first), fn(first + 1), ..., and the device time by kernel."""
+def serve_volume(size, seed=0):
+    """A [size^3, 1] float32 volume from default_rng(seed), on the host."""
+    return np.random.default_rng(seed).normal(
+        size=(size,) * 3 + (1,)).astype(np.float32)
+
+
+def phase_serve(checks, res):
+    vol_shape, psize = (SERVE_VOL,) * 3, (SERVE_PATCH,) * 3
+    grid = tiling.grid_size(vol_shape, psize, SERVE_STRIDE)
+    n_patches = math.prod(grid)
+    print(f'== 24. serve: the bf16 flagship over a {SERVE_VOL}^3 volume in '
+          f'{n_patches} patches of {SERVE_PATCH}^3 (stride {SERVE_STRIDE}), '
+          f'on the card (predict_volume_device) and host-driven '
+          f'(predict_volumes)', flush=True)
+    host_vol = serve_volume(SERVE_VOL)
+    vol = torch.from_numpy(host_vol).cuda()
+    model = flagship(torch.bfloat16, vol=SERVE_PATCH).eval()
+
+    def run(_=None, m=model):
+        return seg.predict_volume_device(m, vol, psize, stride=SERVE_STRIDE,
+                                         agg='mean')
+
+    out = run()   # warm-up
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    out = run()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    per_vol = 3 * n_patches
+    check_step_counts(checks, 'serve', counts,
+                      {'pool2_fwd': per_vol, 'pool2_fwd_vec': per_vol}, 1,
+                      'volume')
+    checks.check('serve launches nothing else', set(counts) == {
+        'pool2_fwd', 'pool2_fwd_vec'}, f'{counts}')
+    record_path(res, 'serve', counts, ('pool2_fwd',))
+    sums = (out.float().sum(-1) - 1).abs().max()
+    checks.check('serve prediction',
+                 tuple(out.shape) == vol_shape + (NB_LABELS,)
+                 and out.dtype == torch.bfloat16
+                 and bool(torch.isfinite(out).all()) and float(sums) < 2e-2,
+                 f'{tuple(out.shape)} {out.dtype}, max |sum - 1| '
+                 f'{float(sums):.3g} (limit 2e-2: bf16 softmaxes averaged '
+                 f'in bf16)')
+    synced = no_host_sync(run)
+    checks.check('serve volume without host sync', not synced,
+                 synced or "sync debug mode 'error' raised nothing")
+    times = []
+    for _ in range(SERVE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f'  serve on the card: ms per volume (median of {SERVE_REPS} after '
+          f'a warm-up) {ms:.3f}; all: ' + ' '.join(f'{t:.3f}' for t in times))
+    print(f'  serve on the card: patches/s {1e3 * n_patches / ms:.3f}, '
+          f'volumes/s {1e3 / ms:.3f}; peak memory {peak} B '
+          f'({peak / 2 ** 30:.3f} GiB; {base} B held before the call)',
+          flush=True)
+    try:
+        report_profile('serve volume', run, 0, calls=1)
+    except Exception as e:  # noqa: BLE001  (a reading, not a check)
+        print(f'  serve profile not measured: {type(e).__name__}: {e}')
+
+    # the plain pool on the card gives the kernel route's bits
+    plain = flagship(torch.bfloat16, pool_impl='plain', vol=SERVE_PATCH).eval()
+    _build.launches.clear()
+    out_plain = run(m=plain)
+    torch.cuda.synchronize()
+    checks.check('serve kernel route == pool_impl plain, bit for bit',
+                 bit_equal(out, out_plain) and not _build.launches,
+                 f'max abs diff {max_abs_err(out, out_plain):.3g}; plain '
+                 f'launches {dict(_build.launches)}')
+    del plain, out_plain
+
+    # with stride = patch size, quilt_device o patch_gen is the identity
+    patches = torch.stack(list(tiling.patch_gen(vol, psize)))
+    back = tiling.quilt_device(patches, psize, vol_shape)
+    checks.check('quilt_device of patch_gen (stride = patch) is identity',
+                 bit_equal(back, vol), f'{len(patches)} patches')
+    del patches, back
+
+    # quilt_device in f32 against the host quilt of the same predictions
+    with torch.inference_mode():
+        preds = torch.stack([
+            model(p[None])[0].float()
+            for p in tiling.patch_gen(vol, psize, SERVE_STRIDE)])
+    dev = tiling.quilt_device(preds, psize, vol_shape, SERVE_STRIDE)
+    host = np.stack([tiling.quilt(preds[..., c].cpu().numpy(), psize,
+                                  vol_shape, SERVE_STRIDE, agg='mean')
+                     for c in range(NB_LABELS)], -1)
+    err = rel_err(dev.double().cpu(), torch.from_numpy(host))
+    checks.check('serve quilt_device f32 vs host quilt mean', err <= 1e-6,
+                 f'max |diff| / max |host| {err:.3g} (limit 1e-6)')
+    # bf16 adds of up to 8 values in [0, 1], each off by half an ulp of its
+    # partial sum, then a bf16 division: within 2^-6 (tests/test_torch_seg.py)
+    bf16_err = rel_err(out.double().cpu(), torch.from_numpy(host))
+    checks.check('serve bf16 accumulation vs the host quilt in float64',
+                 bf16_err <= 2 ** -6,
+                 f'max |diff| / max |host| {bf16_err:.3g} (limit 2^-6)')
+    del preds, dev
+
+    # route (b): host-driven, one patch at a time to the card, host quilt
+    def patch_batches():
+        for p in tiling.patch_gen(host_vol, psize, SERVE_STRIDE):
+            yield torch.from_numpy(np.ascontiguousarray(p[None])).cuda()
+
+    quilt_s = []
+    host_quilt = tiling.quilt
+
+    def timed_quilt(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return host_quilt(*a, **k)
+        finally:
+            quilt_s.append(time.perf_counter() - t0)
+
+    seg.tiling.quilt = timed_quilt
+    try:
+        t0 = time.perf_counter()
+        labels, true = seg.predict_volumes(
+            model, patch_batches(), 1, psize, SERVE_STRIDE, vol_shape,
+            nan_func='nanmedian', device='cuda')
+        wall = time.perf_counter() - t0
+    finally:
+        seg.tiling.quilt = host_quilt
+    print(f'  serve host-driven (predict_volumes, nanmedian): wall '
+          f'{wall:.3f} s once, of it the host quilt {sum(quilt_s):.3f} s '
+          f'({sum(quilt_s) / wall:.4f})', flush=True)
+    checks.check('serve host-driven labels',
+                 labels.shape == vol_shape and true is None
+                 and bool(np.isfinite(labels).all())
+                 and labels.min() >= 0 and labels.max() < NB_LABELS,
+                 f'{labels.shape}, range [{labels.min()}, {labels.max()}]')
+    agree = float((labels == out.float().argmax(-1).cpu().numpy()).mean())
+    print(f'  the host nan-median labels equal the card route\'s argmax at '
+          f'{agree:.4f} of the voxels (another aggregation)')
+    del out, vol, model
+
+    # the card against the plain CPU path at a small size, f32
+    size, patch, stride = SERVE_CHECK
+    small = serve_volume(size, seed=1)
+    flags = exact_f32()
+    try:
+        outs = {}
+        for device in ('cuda', 'cpu'):
+            m = nt.models.unet(
+                nb_features=16, input_shape=(patch,) * 3 + (1,), nb_levels=2,
+                conv_size=3, nb_labels=NB_LABELS, feat_mult=2,
+                nb_conv_per_level=2, generator=torch.Generator().manual_seed(0),
+                device=device)
+            outs[device] = seg.predict_volume_device(
+                m, torch.from_numpy(small).to(device), (patch,) * 3, stride)
+    finally:
+        restore_flags(flags)
+    err = rel_err(outs['cuda'].cpu(), outs['cpu'])
+    checks.check(f'serve at {size}^3 ({patch}^3 patches, stride {stride}), '
+                 f'card vs CPU', err <= 1e-5,
+                 f'max |diff| / max |cpu| {err:.3g} (limit 1e-5)')
+
+
+def cce(y_true, y_pred):
+    return -(y_true * torch.log(y_pred)).sum(-1).mean()
+
+
+def phase_classify(checks, res):
+    vol = CLASSIFY_VOL
+    print(f'== 25. EncoderNet step at {vol}^3, HyperConv3D and the stream '
+          f'layers, card vs CPU', flush=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, vol, vol, vol, 1)).astype(
+        np.float32))
+    y = torch.eye(2)[[1]]
+    flags = exact_f32()
+    try:
+        runs = {}
+        for device in ('cuda', 'cpu'):
+            model = nt.models.EncoderNet(
+                nb_features=16, input_shape=(vol,) * 3 + (1,), nb_levels=4,
+                conv_size=3, feat_mult=2, nb_labels=2,
+                generator=torch.Generator().manual_seed(0), device=device)
+            state = training.create_train_state(model, training.adam(1e-3))
+            _build.launches.clear()
+            state, m = training.make_train_step(cce)(
+                state, (x.to(device), y.to(device)))
+            runs[device] = (float(m['loss']), dict(_build.launches),
+                            {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()})
+            del model, state
+    finally:
+        restore_flags(flags)
+    (lk, counts, gk), (lc, cpu_counts, gc) = runs['cuda'], runs['cpu']
+    check_step_counts(checks, 'classify', counts,
+                      {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3}, 1)
+    record_path(res, 'classify', counts, ('pool2_fwd', 'pool2_bwd'))
+    checks.check('EncoderNet f32 loss, card vs CPU',
+                 abs(lk - lc) <= 1e-5 * abs(lc) and not cpu_counts,
+                 f'card {lk!r} CPU {lc!r} (rtol 1e-5)')
+    worst = max(rel_err(gk[n], gc[n]) for n in gc)
+    checks.check('EncoderNet f32 grads, card vs CPU', worst <= 1e-4,
+                 f'{len(gc)} tensors, worst max|diff|/max|g| {worst:.3g} '
+                 f'(limit 1e-4)')
+
+    # HyperConv3D: per-sample kernels, stride 2, 'same' (XLA's pads)
+    rng = np.random.default_rng(1)
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((2, 32, 31, 30, 4), (2, 3, 2, 3, 4, 8), (2, 8))]
+    layer = nt.layers.HyperConv3D(8, (3, 2, 3), strides=2, padding='same',
+                                  activation='elu')
+    w = torch.from_numpy(rng.normal(size=(2, 16, 16, 15, 8)).astype(
+        np.float32))
+    flags = exact_f32()
+    try:
+        outs = {}
+        for device in ('cuda', 'cpu'):
+            ts = [torch.from_numpy(a).to(device).requires_grad_()
+                  for a in arrays]
+            out = layer(ts)
+            (out * w.to(device)).sum().backward()
+            outs[device] = [out.detach().cpu()] + [t.grad.cpu() for t in ts]
+    finally:
+        restore_flags(flags)
+    errs = [rel_err(a, b) for a, b in zip(outs['cuda'], outs['cpu'])]
+    checks.check('HyperConv3D forward and gradients, card vs CPU',
+                 errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4,
+                 f'output {errs[0]:.3g} (limit 1e-5); d x, d kernel, d bias '
+                 + ', '.join(f'{e:.3g}' for e in errs[1:]) + ' (limit 1e-4)')
+
+    # MeanStream / CovStream over 5 batches
+    flags = exact_f32()
+    try:
+        for name in ('MeanStream', 'CovStream'):
+            layers = {d: getattr(nt.layers, name)((8, 8), cap=6, device=d)
+                      for d in ('cuda', 'cpu')}
+            worst = 0.
+            for i, b in enumerate(STREAM_BATCHES):
+                xb = torch.from_numpy(np.random.default_rng(10 + i).normal(
+                    size=(b, 8, 8)).astype(np.float32))
+                outs = {d: l(xb.to(d), training=True).cpu()
+                        for d, l in layers.items()}
+                worst = max(worst, rel_err(outs['cuda'], outs['cpu']))
+                for buf, t in layers['cpu'].named_buffers():
+                    worst = max(worst, rel_err(
+                        getattr(layers['cuda'], buf).cpu(), t))
+            outs = {d: l(xb.to(d)).cpu() for d, l in layers.items()}
+            worst = max(worst, rel_err(outs['cuda'], outs['cpu']))
+            checks.check(f'{name} over {len(STREAM_BATCHES)} batches, card '
+                         f'vs CPU', worst <= 1e-5,
+                         f'outputs and statistics, worst {worst:.3g} '
+                         f'(limit 1e-5)')
+    finally:
+        restore_flags(flags)
+
+
+def report_profile(label, fn, first, calls=PROFILE_STEPS):
+    """Wall time, device busy time and idle share of `calls` calls
+    fn(first), fn(first + 1), ..., and the device time by kernel; returns
+    the idle share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(PROFILE_STEPS):
+        for i in range(calls):
             fn(first + i)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = device_events(prof)
     busy = sum(ms for ms, _, _ in rows)
     n = sum(c for _, c, _ in rows)
-    print(f'  profile, {label}, {PROFILE_STEPS} calls: wall {wall:.3f} ms, '
-          f'device busy {busy:.3f} ms, {n // PROFILE_STEPS} device events '
+    print(f'  profile, {label}, {calls} calls: wall {wall:.3f} ms, '
+          f'device busy {busy:.3f} ms, {n // calls} device events '
           f'per call, idle share {1 - busy / wall:.4f}')
     for ms, c, key in sorted(rows, reverse=True)[:25]:
-        print(f'    {ms / PROFILE_STEPS:9.4f} ms/call {c // PROFILE_STEPS:5d}'
+        print(f'    {ms / calls:9.4f} ms/call {c // calls:5d}'
               f'/call  {key[:90]}')
+    return 1 - busy / wall
 
 
 def parse_phases(argv):
@@ -2811,6 +3115,8 @@ def main(argv=None):
         '21': lambda: phase_sparse_train(checks),
         '22': lambda: phase_s2d(checks, res),
         '23': lambda: phase_remat(checks, res),
+        '24': lambda: phase_serve(checks, res),
+        '25': lambda: phase_classify(checks, res),
     }
     for name, fn in phases.items():
         if name in run:
@@ -2840,8 +3146,9 @@ def main(argv=None):
           f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 config #3\'s, '
           f'K10 the MI registration run\'s; `paths` gives K1, K2, K4 and K6 '
           f'launches on the SynthStrip run (phase 17), K1 and K2 on the '
-          f'config #4 run (phase 19), and K1-K3 on the space_to_depth and '
-          f'remat flagship runs (phases 22 and 23)')
+          f'config #4 run (phase 19), K1-K3 on the space_to_depth and '
+          f'remat flagship runs (phases 22 and 23), K1 on one serve volume '
+          f'(phase 24) and K1-K2 on one EncoderNet step (phase 25)')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}

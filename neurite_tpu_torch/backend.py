@@ -7,6 +7,7 @@ constructor and entry point puts its modules and tensors on
 do). Functions that take tensors follow their tensors' device.
 """
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,14 @@ def resolve_device(device=None):
 def is_cuda(t):
     """True when tensor t lies on a CUDA device (and so takes the kernels)."""
     return bool(t.is_cuda)
+
+
+def to_numpy(a):
+    """A tensor on any device (bfloat16 as float32), or an array-like, as a
+    numpy array that shares no memory with a tensor."""
+    if not torch.is_tensor(a):
+        return np.asarray(a)
+    a = a.detach()
+    if a.dtype == torch.bfloat16:
+        a = a.float()
+    return a.numpy().copy() if a.device.type == 'cpu' else a.cpu().numpy()

@@ -8,8 +8,12 @@ leaf type:
 
     Conv           kernel [*k, I, O]      <-> weight [O, I, *k]
     PointwiseConv  kernel [1,..,1, I, O]  <-> weight [I, O]
-    BatchNorm      scale, bias (params); mean, var (batch_stats)
-    Local*, LocallyConnected*   every parameter as it is, by its name
+    modules with `flax_same_layout` (BatchNorm, Dense, Local*,
+    LocallyConnected*, the hyper-dense maps, ...)
+                   every parameter as it is, by its name
+    modules with `flax_buffers`    the buffers it names for a collection:
+                   BatchNorm's mean, var (batch_stats), the stream layers'
+                   mean, count (, cov) (stream_stats)
 
 Trees are nested dicts of numpy arrays (any mapping of array-likes loads).
 A bfloat16 leaf loads into a bfloat16 parameter, and a bfloat16 parameter
@@ -21,7 +25,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from neurite_tpu_torch.models.unet import BatchNorm, Conv, PointwiseConv
+from neurite_tpu_torch.models.unet import Conv, PointwiseConv
 
 
 def _same(a):
@@ -30,9 +34,15 @@ def _same(a):
 
 def _entries(module, collection):
     """(flax path, tensor, to_flax, from_flax) for every leaf of
-    `collection` ('params' or 'batch_stats') under `module`."""
+    `collection` ('params', 'batch_stats' or 'stream_stats') under
+    `module`."""
     for name, mod in module.named_modules():
         path = tuple(name.split('.')) if name else ()
+        buffers = getattr(mod, 'flax_buffers', {})
+        if collection in buffers:
+            for leaf in buffers[collection]:
+                yield path + (leaf,), getattr(mod, leaf), _same, _same
+            continue
         if collection == 'params' and isinstance(mod, Conv):
             nd = len(mod.kernel_size)
             to_f = (lambda a, nd=nd:
@@ -50,12 +60,6 @@ def _entries(module, collection):
             for leaf, p in mod.named_parameters(recurse=False):
                 yield path + (leaf,), p, _same, _same
             continue
-        elif isinstance(mod, BatchNorm):
-            names = (('scale', 'bias') if collection == 'params'
-                     else ('mean', 'var'))
-            for leaf in names:
-                yield path + (leaf,), getattr(mod, leaf), _same, _same
-            continue
         else:
             continue
         if mod.bias is not None:
@@ -72,11 +76,12 @@ def _flatten(tree, prefix=()):
     return out
 
 
-def load_flax_params(module, params, batch_stats=None):
-    """Copy a flax `params` tree (and optionally `batch_stats`) into
-    `module` in place; every leaf must match by name and shape. Returns the
-    module."""
-    for collection, tree in (('params', params), ('batch_stats', batch_stats)):
+def load_flax_params(module, params, batch_stats=None, stream_stats=None):
+    """Copy a flax `params` tree (and optionally `batch_stats` and
+    `stream_stats`) into `module` in place; every leaf must match by name
+    and shape. Returns the module."""
+    for collection, tree in (('params', params), ('batch_stats', batch_stats),
+                             ('stream_stats', stream_stats)):
         if tree is None:
             continue
         flat = _flatten(tree)
@@ -102,8 +107,9 @@ def load_flax_params(module, params, batch_stats=None):
 
 
 def to_flax_params(module, collection='params', grad=False):
-    """The module's `collection` ('params' or 'batch_stats') as a flax-layout
-    tree of numpy arrays; with grad=True, the parameters' gradients."""
+    """The module's `collection` ('params', 'batch_stats' or
+    'stream_stats') as a flax-layout tree of numpy arrays; with grad=True,
+    the parameters' gradients."""
     tree = {}
     for path, t, to_flax, _ in _entries(module, collection):
         src = t.grad if grad else t

@@ -9,6 +9,10 @@ from neurite_tpu_torch.models.unet import (  # noqa: F401
 from neurite_tpu_torch.models.ae import (  # noqa: F401
     AE, SingleAE, ae, single_ae,
 )
+from neurite_tpu_torch.models.classify import (  # noqa: F401
+    DesignDNN, EncoderNetModule, DenseLayerNetModule,
+    design_dnn, EncoderNet, DenseLayerNet,
+)
 from neurite_tpu_torch.models.synth import (  # noqa: F401
     LabelsToImage, LabelsToImageV1, SynthStripModule,
     labels_to_image, labels_to_image_new, SynthStrip,

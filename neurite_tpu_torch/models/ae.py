@@ -46,9 +46,16 @@ class Dense(nn.Module):
 
     def __init__(self, in_features, features, generator=None):
         super().__init__()
-        self.kernel = nn.Parameter(_lecun_normal((in_features, features),
-                                                 in_features, generator))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        """Draw the kernel (lecun normal) from `generator`; zero the bias."""
+        with torch.no_grad():
+            self.kernel.copy_(_lecun_normal(tuple(self.kernel.shape),
+                                            self.kernel.shape[0], generator))
+            self.bias.zero_()
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.kernel.dtype)

@@ -83,14 +83,16 @@ def _tuple(v, n):
 
 class Conv(nn.Module):
     """
-    flax `nn.Conv` counterpart for N = 1, 2 or 3 spatial dims: stride 1,
-    SAME or VALID padding, dilation. The weight is [O, I, *k] in the
+    flax `nn.Conv` counterpart for N = 1, 2 or 3 spatial dims: SAME or VALID
+    padding, strides, dilation. The weight is [O, I, *k] in the
     channels-last memory format, so the NDHWC input viewed as NCDHW
-    (`x.movedim(-1, 1)`) goes through `F.conv{N}d` without a copy.
+    (`x.movedim(-1, 1)`) goes through `F.conv{N}d` without a copy. With
+    strides, SAME pads as XLA does (the high side takes the odd voxel).
     """
 
     def __init__(self, in_features, features, kernel_size, padding='same',
-                 dilation=1, dtype=None, use_bias=True, generator=None):
+                 dilation=1, dtype=None, use_bias=True, generator=None,
+                 strides=1):
         super().__init__()
         ks = tuple(kernel_size)
         nd = len(ks)
@@ -99,24 +101,45 @@ class Conv(nn.Module):
         pad = padding.lower() if isinstance(padding, str) else padding
         if pad not in ('same', 'valid'):
             raise ValueError(f"padding must be 'same' or 'valid', got {padding!r}")
-        w = _lecun_normal((features, in_features, *ks),
-                          in_features * math.prod(ks), generator)
+        w = torch.empty((features, in_features, *ks))
         fmt = {2: torch.channels_last, 3: torch.channels_last_3d}.get(nd)
         if fmt is not None:
             w = w.contiguous(memory_format=fmt)
         self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.kernel_size = ks
         self.padding = pad
         self.dilation = int(dilation)
+        self.strides = _tuple(strides, nd)
         self.dtype = dtype
         self._conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        """Draw the kernel (lecun normal) from `generator`; zero the bias."""
+        with torch.no_grad():
+            self.weight.copy_(_lecun_normal(
+                tuple(self.weight.shape),
+                self.weight.shape[1] * math.prod(self.kernel_size), generator))
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         dt = self.dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        y = self._conv(x.movedim(-1, 1).to(dt), self.weight.to(dt), b,
-                       padding=self.padding, dilation=self.dilation)
+        x = x.movedim(-1, 1).to(dt)
+        if all(s == 1 for s in self.strides):
+            y = self._conv(x, self.weight.to(dt), b, padding=self.padding,
+                           dilation=self.dilation)
+            return y.movedim(1, -1)
+        if self.padding == 'same':
+            pads = []
+            for n, k, st in reversed(list(zip(x.shape[2:], self.kernel_size,
+                                              self.strides))):
+                pads += core._same_pad(n, k, st, self.dilation)
+            x = F.pad(x, pads)
+        y = self._conv(x, self.weight.to(dt), b, stride=self.strides,
+                       dilation=self.dilation)
         return y.movedim(1, -1)
 
 
@@ -130,11 +153,19 @@ class PointwiseConv(nn.Module):
     def __init__(self, in_features, features, ndims, dtype=None,
                  use_bias=True, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(
-            _lecun_normal((in_features, features), in_features, generator))
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.weight = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.kernel_size = (1,) * ndims
         self.dtype = dtype
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator=None):
+        """Draw the kernel (lecun normal) from `generator`; zero the bias."""
+        with torch.no_grad():
+            self.weight.copy_(_lecun_normal(tuple(self.weight.shape),
+                                            self.weight.shape[0], generator))
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x):
         dt = self.dtype or x.dtype
@@ -151,6 +182,9 @@ class BatchNorm(nn.Module):
     `mean`, `var` (flax's `batch_stats`).
     """
 
+    flax_same_layout = True
+    flax_buffers = {'batch_stats': ('mean', 'var')}
+
     def __init__(self, features, axis=-1, dtype=None, momentum=0.99,
                  epsilon=1e-5):
         super().__init__()
@@ -162,6 +196,14 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
         self.momentum = momentum
         self.epsilon = epsilon
+
+    def reset_parameters(self, generator=None):
+        """flax's initial values: scale and var 1, bias and mean 0."""
+        with torch.no_grad():
+            for t in (self.scale, self.var):
+                t.fill_(1.)
+            for t in (self.bias, self.mean):
+                t.zero_()
 
     def forward(self, x, training=False, update_stats=True):
         """With training, normalize by the batch statistics and, unless
