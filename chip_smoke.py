@@ -14,8 +14,11 @@ synthesis -> FreeSurfer's mri_synthstrip UNet), the config #4 conv VAE
 training step (`bench.py:376-389`), config #4's sparse-imputation VAE step
 (`benchmarks/vae_sparse.py`), and the flagship with space_to_depth=2 and
 with remat=True (with checkpoints and the checked step), whole-volume
-patch inference of a 256^3 scan through the flagship (the serve path), and
-an EncoderNet training step; and checks every hand-written kernel on them
+patch inference of a 256^3 scan through the flagship (the serve path), an
+EncoderNet training step, and the flagship trained from FreeSurfer-style
+volumes on disk (`generators.vol_seg` -> `prefetch_to_device` ->
+`training.fit`) beside the threaded feed of `bench.py:292-339`; and checks
+every hand-written kernel on them
 against its plain PyTorch version, each path's launch counts set to 0 just
 before it and read just after. Phases (phase
 1 runs whatever --phases names):
@@ -244,7 +247,34 @@ before it and read just after. Phases (phase
      HyperConv3D (per-sample kernels (3, 2, 3), stride 2, 'same', ELU)
      forward within 1e-5 and its three gradients within 1e-4 relative,
      card vs CPU; MeanStream and CovStream over 5 batches, outputs and
-     statistics card vs CPU within 1e-5 relative.
+     statistics card vs CPU within 1e-5 relative;
+ 26. the flagship from disk: 8 subjects written by `io.save_volfile` (set-
+     up, untimed: a uint8 160^3 `norm.mgz` and an int32 `aseg.mgz` of
+     labels 0, 2, 3, 41 each, default_rng(0), gzip level 9) feed
+     `generators.vol_seg(ext='.mgz', vol_proc(crop=16, rescale=1/255),
+     volcrop(16), relabel, nb_labels_reshape=4)`: float16 x [1, 128^3, 1]
+     and one-hot y [1, 128^3, 4], through `prefetch_to_device(size=2)`
+     into `training.fit` of the bf16 flagship (seed 0, SoftDice, Adam
+     1e-3). The feed's one-hot and relabel run the C++ host ops built from
+     the port's source (`io/native.py`); the generator's ms a batch on the
+     host alone; a batch's H2D ms on a copy stream from pinned memory; a
+     checked run of 6 steps (deterministic cuDNN): each consumed device
+     batch bit-equal to its host copy after its step, and every loss,
+     step 0's among them, bit-equal to a run of a fresh model from the same
+     weights on synchronous `.to('cuda')` puts of the same batches; the
+     producer thread ended after `close()`; 10 steps from disk: finite
+     losses, launches exactly K1 3, K2 3, K3 1 a step (K1 and K3 by their
+     'vec' bodies) and no other kernel, median step ms, peak memory, a
+     profile of 3 steps (idle share), and the same step on one resident
+     batch beside it;
+ 27. the threaded feed: 8 volumes of 128^3 float32 `.npz` (`vol_data`) ->
+     `VolumeDataset.batches(1, num_workers=4)`, one warm batch then 24
+     timed (host_vols_per_sec); one [1, 128^3] batch put 3 times through
+     `prefetch_to_device`'s pinned copy and 3 times by a pageable
+     `torch.from_numpy(b).to('cuda')`, each ended by a synchronise
+     (put_mbps); `prefetch_to_device` over `batches(1, epochs=1,
+     num_workers=4)` yields the 8 batches in order, each bit-equal to the
+     serial `batches(1, epochs=1)`.
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -261,7 +291,7 @@ the port.
 Prints one line per check, then a JSON line of the kernels (each with its
 path run's launches and body launches, `body_launches`, and in `paths` its
 launches and body launches on the SynthStrip, config #4, space_to_depth,
-remat, serve (one volume) and classify (one step) runs), and last
+remat, serve (one volume), classify (one step) and disk runs), and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
 machine without a CUDA device. Run with --phases, a kernel's fields that
 no phase of the run measured are null, and both JSON lines carry the
@@ -271,11 +301,13 @@ phases that ran.
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -349,12 +381,13 @@ PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
              's2d': ('22', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
              'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
              'serve': ('24', ('pool2_fwd',)),
-             'classify': ('25', ('pool2_fwd', 'pool2_bwd'))}
+             'classify': ('25', ('pool2_fwd', 'pool2_bwd')),
+             'disk': ('26', ('pool2_fwd', 'pool2_bwd', 'dice_sums'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
           '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23',
-          '24', '25')
+          '24', '25', '26', '27')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -389,6 +422,20 @@ SERVE_CHECK = (32, 16, 8)
 SERVE_REPS = 3
 CLASSIFY_VOL = 64       # the EncoderNet step, card vs CPU
 STREAM_BATCHES = (2, 3, 1, 4, 2)
+# the flagship from disk: FreeSurfer-style subjects (a uint8 norm.mgz and an
+# int32 aseg.mgz of unknown, left WM, left cortex and right WM), 160^3
+# cropped by 16 a side to the flagship's 128^3
+DISK_SUBJECTS = 8
+DISK_VOL = 160
+DISK_CROP = 16
+DISK_LABELS = [0, 2, 3, 41]
+DISK_CHECK_STEPS = 6
+DISK_HOST_BATCHES = 5
+# the threaded feed (`bench.py:292-339`): 8 volumes of 128^3 float32 .npz
+FEED_VOLS = 8
+FEED_WORKERS = 4
+FEED_BATCHES = 24
+FEED_PUTS = 3
 
 
 class Checks:
@@ -540,7 +587,8 @@ def bit_equal(a, b):
     na, nb = torch.isnan(a), torch.isnan(b)
     if not torch.equal(na, nb):
         return False
-    ity = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    ity = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+           torch.float16: torch.int16}[a.dtype]
     return torch.equal(a[~na].view(ity), b[~nb].view(ity))
 
 
@@ -3041,6 +3089,298 @@ def phase_classify(checks, res):
         restore_flags(flags)
 
 
+def write_subjects(root, n=DISK_SUBJECTS, vol=DISK_VOL):
+    """n FreeSurfer-style subjects under root/norm and root/aseg: a uint8
+    `norm.mgz` and an int32 `aseg.mgz` of labels DISK_LABELS, vol^3 each,
+    drawn in turn from default_rng(0), written by the port's
+    `io.save_volfile` (gzip level 9, as FreeSurfer's .mgz: about 25 s a
+    label volume, so the files are written by a thread each, zlib releasing
+    the interpreter's lock); returns the two directories."""
+    from concurrent.futures import ThreadPoolExecutor
+    rng = np.random.default_rng(0)
+    dirs = [os.path.join(root, d) for d in ('norm', 'aseg')]
+    for d in dirs:
+        os.makedirs(d)
+    files = []
+    for i in range(n):
+        files.append((os.path.join(dirs[0], f'subj{i:02d}_norm.mgz'),
+                      rng.integers(0, 256, size=(vol,) * 3, dtype=np.uint8)))
+        files.append((os.path.join(dirs[1], f'subj{i:02d}_aseg.mgz'),
+                      rng.choice(DISK_LABELS, size=(vol,) * 3)
+                      .astype(np.int32)))
+    with ThreadPoolExecutor(max_workers=2 * n) as pool:
+        for f in [pool.submit(nt.io.save_volfile, *a) for a in files]:
+            f.result()
+    return dirs
+
+
+def disk_feed(norm, aseg):
+    """The reference's generator as users call it: (x [1, 128^3, 1], y [1,
+    128^3, 4] one-hot), both float16, from the 160^3 subjects."""
+    return nt.generators.vol_seg(
+        norm, aseg, ext='.mgz',
+        proc_vol_fn=lambda v: nt.dataproc.vol_proc(v, crop=DISK_CROP,
+                                                   rescale=1 / 255),
+        proc_seg_fn=lambda s: nt.dataproc.volcrop(s, DISK_CROP),
+        relabel=DISK_LABELS, nb_labels_reshape=NB_LABELS)
+
+
+def prefetch_threads():
+    return [t for t in threading.enumerate()
+            if t.name == 'prefetch_to_device' and t.is_alive()]
+
+
+class StepLog:
+    """fit's callback: the loss and the wall time of each step (fit reads
+    the loss, which synchronises), and a check run after each step."""
+
+    def __init__(self, after_step=None):
+        self.losses, self.times = [], []
+        self.after_step = after_step
+
+    def on_batch_end(self, i, state, logs):
+        self.losses.append(logs['loss'])
+        self.times.append(logs['time'])
+        if self.after_step is not None:
+            self.after_step(i)
+
+
+def disk_step():
+    model = flagship(dtype=torch.bfloat16)
+    state = training.create_train_state(model, training.adam(1e-3))
+    return state, training.make_train_step(
+        nt.losses.SoftDice(check_input_limits=False).loss)
+
+
+def phase_disk(checks, res):
+    from neurite_tpu_torch.io import native
+    print(f'== 26. the flagship from disk: {DISK_SUBJECTS} subjects of '
+          f'{DISK_VOL}^3 .mgz -> generators.vol_seg -> prefetch_to_device -> '
+          f'training.fit (bf16, {VOL}^3 crops)', flush=True)
+    t0 = time.perf_counter()
+    native.library()
+    print(f'  host ops: {native.SO} ready in {time.perf_counter() - t0:.3f} s '
+          f'(g++ at first use)')
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        norm, aseg = write_subjects(tmp)
+        mib = sum(os.path.getsize(os.path.join(d, f)) for d in (norm, aseg)
+                  for f in os.listdir(d)) / 2 ** 20
+        print(f'  set-up: wrote {2 * DISK_SUBJECTS} .mgz files ({mib:.1f} MiB) '
+              f'in {time.perf_counter() - t0:.3f} s (untimed)', flush=True)
+
+        # the generator alone on the host: no card, no prefetch
+        calls = []
+        lib_of = native.library
+        native.library = lambda: calls.append(1) or lib_of()
+        try:
+            gen = disk_feed(norm, aseg)
+            next(gen)
+            host_ms = []
+            for _ in range(DISK_HOST_BATCHES):
+                t0 = time.perf_counter()
+                x_h, y_h = next(gen)
+                host_ms.append(1e3 * (time.perf_counter() - t0))
+            gen.close()
+        finally:
+            native.library = lib_of
+        checks.check('disk batch shapes',
+                     x_h.shape == (1, VOL, VOL, VOL, 1)
+                     and y_h.shape == (1, VOL, VOL, VOL, NB_LABELS)
+                     and x_h.dtype == y_h.dtype == np.float16
+                     and bool((y_h.sum(-1) == 1).all()),
+                     f'x {x_h.dtype}{x_h.shape}, y {y_h.dtype}{y_h.shape}')
+        lib = native._lib
+        checks.check('disk feed ran the native host ops',
+                     bool(calls) and lib is not None
+                     and lib._name == native.SO
+                     and os.path.dirname(native.SO) == _build.BUILD_DIR
+                     and os.path.getmtime(native.SO)
+                     >= os.path.getmtime(native.SRC),
+                     f'{len(calls)} native calls, library '
+                     f'{getattr(lib, "_name", None)}')
+        print(f'  generator on the host alone: '
+              f'{statistics.median(host_ms):.3f} ms a batch (median of '
+              f'{DISK_HOST_BATCHES}; all: '
+              + ' '.join(f'{t:.1f}' for t in host_ms) + ')', flush=True)
+
+        # H2D of one batch on a copy stream, from pinned memory
+        stream = torch.cuda.Stream()
+        pinned = [torch.from_numpy(a).pin_memory() for a in (x_h, y_h)]
+        h2d = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            with torch.cuda.stream(stream):
+                a.record(stream)
+                dev = [p.to('cuda', non_blocking=True) for p in pinned]
+                b.record(stream)
+            b.synchronize()
+            h2d.append(a.elapsed_time(b))
+        nbytes = x_h.nbytes + y_h.nbytes
+        print(f'  H2D a batch ({nbytes / 2 ** 20:.0f} MiB, pinned, copy '
+              f'stream): {statistics.median(h2d[1:]):.4f} ms (median of 4 '
+              f'after one), {nbytes / statistics.median(h2d[1:]) / 1e6:.1f} '
+              f'GB/s', flush=True)
+        del pinned, dev
+
+        # a checked run: each consumed device batch against its host copy,
+        # after its step; the losses against synchronous puts of the same
+        # host batches, bit for bit (deterministic cuDNN for both)
+        flags = exact_f32()
+        try:
+            host, device = [], []
+
+            def keep(it):
+                for batch in it:
+                    host.append(tuple(a.copy() for a in batch))
+                    yield batch
+
+            def consume(it):
+                for batch in it:
+                    device.append(batch)
+                    yield batch
+
+            bad = []
+
+            def compare(i):
+                x, y = device[i]
+                if not (x.is_cuda and y.is_cuda
+                        and bit_equal(x.cpu(), torch.from_numpy(host[i][0]))
+                        and bit_equal(y.cpu(), torch.from_numpy(host[i][1]))):
+                    bad.append(i)
+                device[i] = None
+
+            state, step = disk_step()
+            feed = nt.generators.prefetch_to_device(
+                keep(disk_feed(norm, aseg)), size=2)
+            log = StepLog(compare)
+            training.fit(state, step, consume(feed), DISK_CHECK_STEPS,
+                         callbacks=[log])
+            feed.close()
+            checks.check('disk batches bit-equal to their host copies',
+                         not bad and len(device) == DISK_CHECK_STEPS,
+                         f'{len(device)} consumed, mismatched steps {bad}')
+            checks.check('disk producer thread ended after close',
+                         not prefetch_threads(),
+                         f'{len(prefetch_threads())} alive')
+            state, step = disk_step()
+            sync = StepLog()
+            training.fit(state, step,
+                         iter([tuple(torch.from_numpy(a).to('cuda')
+                                     for a in b) for b in host]),
+                         DISK_CHECK_STEPS, callbacks=[sync])
+            checks.check('disk step-0 loss == a synchronous put\'s',
+                         log.losses[0] == sync.losses[0],
+                         f'prefetched {log.losses[0]!r} sync '
+                         f'{sync.losses[0]!r}')
+            checks.check('disk losses == synchronous puts\' (deterministic '
+                         'cuDNN)', log.losses == sync.losses,
+                         ' '.join(f'{v:.6f}' for v in log.losses))
+        finally:
+            restore_flags(flags)
+
+        # a timed run of 10 steps from disk: launches, step ms, peak memory
+        state, step = disk_step()
+        feed = nt.generators.prefetch_to_device(disk_feed(norm, aseg), size=2)
+        log = StepLog()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        training.fit(state, step, feed, TRAIN_STEPS, callbacks=[log])
+        counts = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        checks.check('disk losses finite', all(np.isfinite(log.losses)),
+                     ' '.join(f'{v:.6f}' for v in log.losses))
+        check_step_counts(checks, 'disk', counts,
+                          {'pool2_fwd': 3, 'pool2_fwd_vec': 3,
+                           'pool2_bwd': 3, 'dice_sums': 1,
+                           'dice_sums_vec': 1}, TRAIN_STEPS)
+        others = sorted(set(counts) - {'pool2_fwd', 'pool2_fwd_vec',
+                                       'pool2_bwd', 'dice_sums',
+                                       'dice_sums_vec'})
+        checks.check('disk runs no other kernel', not others,
+                     f'other launches: {others}')
+        record_path(res, 'disk', counts, PATH_RUNS['disk'][1])
+        times = np.diff([0.] + log.times).tolist()
+        disk_ms = report_steps('flagship from disk', times, peak)
+        try:
+            idle = report_profile('flagship step from disk',
+                                  lambda i: step(state, next(feed)),
+                                  TRAIN_STEPS)
+        except Exception as e:  # noqa: BLE001  (a reading, not a check)
+            print(f'  disk profile not measured: {type(e).__name__}: {e}')
+            idle = None
+        feed.close()
+        checks.check('disk producer thread ended after the timed run',
+                     not prefetch_threads(),
+                     f'{len(prefetch_threads())} alive')
+
+        # the same model and step on one resident batch (phase 6's feed)
+        x, y = (torch.from_numpy(a).cuda() for a in (x_h, y_h))
+        state, losses, times, _, _ = timed_steps(step, state, ((x, y),))
+        mem_ms = report_steps('flagship in memory (same call)', times, peak)
+        print(f'  disk: step {disk_ms:.3f} ms from disk vs {mem_ms:.3f} in '
+              f'memory; generator {statistics.median(host_ms):.3f} ms a '
+              f'batch on the host; H2D {statistics.median(h2d[1:]):.4f} ms; '
+              f'idle share {idle if idle is None else round(idle, 4)}; peak '
+              f'{peak / 2 ** 30:.3f} GiB', flush=True)
+
+
+def phase_feed(checks):
+    print(f'== 27. the threaded feed: {FEED_VOLS} volumes of {VOL}^3 f32 '
+          f'.npz -> VolumeDataset.batches(num_workers={FEED_WORKERS}) -> '
+          f'prefetch_to_device', flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        for i in range(FEED_VOLS):
+            np.savez_compressed(os.path.join(tmp, f'v{i:02d}.npz'),
+                                vol_data=rng.normal(size=(VOL,) * 3)
+                                .astype(np.float32))
+        print(f'  set-up: {FEED_VOLS} .npz in {time.perf_counter() - t0:.3f} '
+              f's (untimed)')
+        ds = nt.generators.VolumeDataset(tmp, ext='.npz')
+        it = ds.batches(1, num_workers=FEED_WORKERS)
+        first = next(it)      # warm: the pool's threads start
+        t0 = time.perf_counter()
+        for _, _b in zip(range(FEED_BATCHES), it):
+            pass
+        host_vps = FEED_BATCHES / (time.perf_counter() - t0)
+        it.close()
+        xb = np.asarray(first, np.float32)
+        rates = {}
+        for name, put in (
+                ('pinned (prefetch_to_device\'s copy)',
+                 lambda: nt.generators.to_device(xb, 'cuda')),
+                ('pageable (torch.from_numpy(b).to(cuda))',
+                 lambda: torch.from_numpy(xb).to('cuda'))):
+            put()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FEED_PUTS):
+                d = put()
+                torch.cuda.synchronize()
+            rates[name] = xb.nbytes * FEED_PUTS / (time.perf_counter() - t0) / 1e6
+            del d
+        print(f'  feed host_vols_per_sec {host_vps:.3f} ({FEED_BATCHES} '
+              f'batches of [1, {VOL}^3] after one, {FEED_WORKERS} workers)')
+        for name, mbps in rates.items():
+            print(f'  feed put_mbps {name}: {mbps:.1f} MB/s '
+                  f'({xb.nbytes / 2 ** 20:.0f} MiB x {FEED_PUTS}, each ended '
+                  f'by a synchronise)', flush=True)
+        serial = list(ds.batches(1, epochs=1))
+        feed = nt.generators.prefetch_to_device(
+            ds.batches(1, epochs=1, num_workers=FEED_WORKERS), size=2)
+        got = list(feed)
+        ok = len(got) == len(serial) == FEED_VOLS and all(
+            g.is_cuda and bit_equal(g.cpu(), torch.from_numpy(s))
+            for g, s in zip(got, serial))
+        checks.check('feed prefetched batches == the serial batches, in order',
+                      ok, f'{len(got)} batches (expected {FEED_VOLS})')
+        checks.check('feed producer thread ended', not prefetch_threads(),
+                     f'{len(prefetch_threads())} alive')
+
+
 def report_profile(label, fn, first, calls=PROFILE_STEPS):
     """Wall time, device busy time and idle share of `calls` calls
     fn(first), fn(first + 1), ..., and the device time by kernel; returns
@@ -3117,6 +3457,8 @@ def main(argv=None):
         '23': lambda: phase_remat(checks, res),
         '24': lambda: phase_serve(checks, res),
         '25': lambda: phase_classify(checks, res),
+        '26': lambda: phase_disk(checks, res),
+        '27': lambda: phase_feed(checks),
     }
     for name, fn in phases.items():
         if name in run:
@@ -3148,7 +3490,8 @@ def main(argv=None):
           f'launches on the SynthStrip run (phase 17), K1 and K2 on the '
           f'config #4 run (phase 19), K1-K3 on the space_to_depth and '
           f'remat flagship runs (phases 22 and 23), K1 on one serve volume '
-          f'(phase 24) and K1-K2 on one EncoderNet step (phase 25)')
+          f'(phase 24), K1-K2 on one EncoderNet step (phase 25) and K1-K3 '
+          f'on the flagship trained from disk (phase 26)')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}

@@ -24,6 +24,9 @@ from neurite_tpu_torch import models  # noqa: F401
 from neurite_tpu_torch import training  # noqa: F401
 from neurite_tpu_torch import convert  # noqa: F401
 from neurite_tpu_torch import io  # noqa: F401
+from neurite_tpu_torch import generators  # noqa: F401
+from neurite_tpu_torch import dataproc  # noqa: F401
+from neurite_tpu_torch import data  # noqa: F401
 from neurite_tpu_torch import callbacks  # noqa: F401
 from neurite_tpu_torch import modelio  # noqa: F401
 from neurite_tpu_torch.py import plot  # noqa: F401

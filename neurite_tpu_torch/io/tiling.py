@@ -4,11 +4,9 @@ Patch extraction and quilt reassembly for N-D volumes.
 Counterpart of `neurite_tpu/io/tiling.py` (reference: pystrum's
 `patchlib.patch_gen` and `quilt`, `neurite/tf/utils/seg.py:363-374`): the
 grid arithmetic and the host quilt are numpy, `quilt_device` adds the
-patches of a tensor into a volume on the tensor's device.
-
-The JAX package's host nan-median takes its native C++ library for float32
-stacks; that library is not ported yet, so here every dtype takes
-`np.nanmedian` (the same median).
+patches of a tensor into a volume on the tensor's device. The host
+nan-median of float32 stacks runs the native C++ library (`io/native.py`),
+as the JAX package's does; float64 stacks take `np.nanmedian`.
 """
 
 import itertools
@@ -114,6 +112,11 @@ def quilt(patches, patch_size, vol_shape, stride=None, agg='nanmean'):
         coords = tuple(fr + s.start for fr, s in zip(flat_region, sl))
         layers[(li.reshape(-1), *coords)] = p.reshape(-1)
         layer_idx[sl] += 1
+    # the multithreaded native nth_element for float32; float64 stacks stay
+    # on the exact numpy path
+    if layers.dtype == np.float32:
+        from neurite_tpu_torch.io import native
+        return native.nan_aggregate_axis0(layers, agg='nanmedian')
     with np.errstate(invalid='ignore'):
         return np.nanmedian(layers, axis=0)
 

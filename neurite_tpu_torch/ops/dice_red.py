@@ -131,7 +131,7 @@ class DiceSums(torch.autograd.Function):
         return g_xy * y + 2. * g_xx * x, g_xy * x + 2. * g_yy * y
 
 
-def dice_sums(x, y, impl='auto'):
+def dice_sums(x, y, impl='auto', interpret=False):
     """
     One-pass Dice partial sums.
 
@@ -140,6 +140,9 @@ def dice_sums(x, y, impl='auto'):
         impl: 'auto' or 'kernel' (K3 for CUDA tensors, the plain version for
             CPU tensors), or 'plain'. JAX's 'pallas' and 'jnp' are aliases of
             'kernel' and 'plain'.
+        interpret: True takes the plain version whatever `impl` says, the
+            port's counterpart of running the Pallas kernel in interpret
+            mode.
 
     Returns:
         (sum_xy, sum_xx, sum_yy), each [bs, L] float32.
@@ -148,6 +151,6 @@ def dice_sums(x, y, impl='auto'):
         raise ValueError(f'impl must be one of {sorted(_IMPLS)}, got {impl!r}')
     x = x.to(torch.float32)
     y = y.to(torch.float32)
-    if _IMPLS[impl] == 'plain' or not x.is_cuda:
+    if interpret or _IMPLS[impl] == 'plain' or not x.is_cuda:
         return _dice_sums_plain(x, y)
     return DiceSums.apply(x.contiguous(), y.contiguous())

@@ -45,7 +45,8 @@ def _split(batch):
     return batch if isinstance(batch, (tuple, list)) else (batch['x'], batch['y'])
 
 
-def make_train_step(loss_fn):
+def make_train_step(loss_fn, has_aux_vars=False, rng_names=('dropout',),
+                    axis_name=None):
     """
     Build a train step: step(state, batch, generator) -> (state,
     {'loss': 0-d tensor}).
@@ -54,7 +55,19 @@ def make_train_step(loss_fn):
     for batch['x'] (or batch[0]). `generator` draws dropout masks. The loss
     stays on the device (no host sync); the step's gradients stay in the
     parameters' `.grad` until the next step.
+
+    has_aux_vars and rng_names keep JAX's signature and change nothing: a
+    module's buffers (BatchNorm statistics) update in place whatever
+    has_aux_vars says, and one generator serves every random stream.
+    axis_name (JAX's gradient mean over a mesh axis) raises unless None:
+    data parallelism needs the parallel port (ROADMAP Queue 1 item 9).
     """
+    del has_aux_vars, rng_names
+    if axis_name is not None:
+        raise NotImplementedError(
+            f'axis_name={axis_name!r}: a gradient mean over a mesh axis '
+            f'needs the parallel port (ROADMAP Queue 1 item 9); only '
+            f'axis_name=None is supported')
 
     def step(state, batch, generator=None):
         x, y = _split(batch)
@@ -91,8 +104,8 @@ def step_generator(seed, step, device):
     return torch.Generator(device=device).manual_seed(s)
 
 
-def fit(state, train_step, data_iter, nb_steps, seed=0, callbacks=(),
-        log_every=0, start_step=0):
+def fit(state, train_step, data_iter, nb_steps, rng=None, callbacks=(),
+        log_every=0, jit=True, start_step=0, seed=0):
     """
     Host-side fit loop: pulls batches, invokes the step, and runs callback
     hooks (counterpart of the JAX `fit`).
@@ -101,8 +114,14 @@ def fit(state, train_step, data_iter, nb_steps, seed=0, callbacks=(),
     state, logs), on_train_end(state). Hook exceptions propagate.
 
     The step of global index start_step + i draws its randomness from
-    `step_generator(seed, start_step + i, device)`.
+    `step_generator(seed, start_step + i, device)`. The parameters keep
+    JAX's order: `rng`, JAX's key, is an integer seed here and, when given,
+    takes the place of `seed`; `jit` has no torch meaning (the step runs
+    eagerly either way).
     """
+    del jit
+    if rng is not None:
+        seed = int(rng)
     device = next(state.model.parameters()).device
     for cb in callbacks:
         if hasattr(cb, 'on_train_begin'):

@@ -1,8 +1,10 @@
 """
 The import rule of the PyTorch port: `neurite_tpu_torch` and every one of
-its modules import with JAX, flax, optax, orbax, the JAX package and
-matplotlib blocked, as on the machine with the card, which has none of
-them. Run in a fresh interpreter, where none of them is loaded yet.
+its modules import with JAX, flax, optax, orbax, the JAX package,
+matplotlib, PIL, tensorflow and nibabel blocked, as on the machine with the
+card, which has none of them (the data modules import PIL, tensorflow and
+matplotlib inside the functions that need them). Run in a fresh
+interpreter, where none of them is loaded yet.
 """
 import os
 import pkgutil
@@ -14,7 +16,7 @@ import pytest
 pytest.importorskip('torch')
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'neurite_tpu',
-           'matplotlib')
+           'matplotlib', 'PIL', 'tensorflow', 'nibabel')
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = f"""
@@ -48,5 +50,9 @@ def test_port_imports_without_jax_flax_optax_orbax_or_matplotlib():
               'neurite_tpu_torch.layers.hyper',
               'neurite_tpu_torch.models.classify',
               'neurite_tpu_torch.modelio', 'neurite_tpu_torch.utils.model',
-              'neurite_tpu_torch.py.plot', 'neurite_tpu_torch.callbacks'):
+              'neurite_tpu_torch.py.plot', 'neurite_tpu_torch.callbacks',
+              'neurite_tpu_torch.io.medio', 'neurite_tpu_torch.io.native',
+              'neurite_tpu_torch.generators', 'neurite_tpu_torch.dataproc',
+              'neurite_tpu_torch.data', 'neurite_tpu_torch.py.data',
+              'neurite_tpu_torch.ops.conv'):
         assert m in want
