@@ -17,7 +17,10 @@ with remat=True (with checkpoints and the checked step), whole-volume
 patch inference of a 256^3 scan through the flagship (the serve path), an
 EncoderNet training step, and the flagship trained from FreeSurfer-style
 volumes on disk (`generators.vol_seg` -> `prefetch_to_device` ->
-`training.fit`) beside the threaded feed of `bench.py:292-339`; and checks
+`training.fit`) beside the threaded feed of `bench.py:292-339`, the
+flagship trained data-parallel over ranks (`parallel.create_mesh`,
+`shard_batch`, `make_sharded_train_step`) and the z-sharded halo ops of
+`parallel` at config #3's and config #5's widths; and checks
 every hand-written kernel on them
 against its plain PyTorch version, each path's launch counts set to 0 just
 before it and read just after. Phases (phase
@@ -274,7 +277,45 @@ before it and read just after. Phases (phase
      `torch.from_numpy(b).to('cuda')`, each ended by a synchronise
      (put_mbps); `prefetch_to_device` over `batches(1, epochs=1,
      num_workers=4)` yields the 8 batches in order, each bit-equal to the
-     serial `batches(1, epochs=1)`.
+     serial `batches(1, epochs=1)`;
+ 28. the data-parallel flagship (`parallel`; each rank a process on the
+     one card, started by torch.multiprocessing with spawn over a free
+     localhost port, loading the kernels phase 2 built): (a) in this
+     process, a 1 x 1 mesh over a 1-rank NCCL group: 3 f32 steps of
+     `make_sharded_train_step` bit-equal to 3 plain steps from the same
+     weights, losses and parameters (TF32 off, deterministic cuDNN); (b)
+     a 'data' mesh of 2 gloo ranks, global batch 2 (bench.py's draws),
+     one item a rank: one f32 step (TF32 off, deterministic cuDNN), each
+     rank's loss within rtol 1e-5 and each averaged gradient within 1e-4
+     of its largest magnitude of the single-process step on the batch of
+     2, the ranks' parameters bit-equal to one another and within 2 lr +
+     1e-6 of the single-process step's (Adam's first update is lr * g /
+     (|g| + eps), about lr for any g, so a near-zero gradient whose sign
+     the sums' order flips moves its parameter 2 lr the other way; the
+     count of entries off by more than 1e-6 is printed); then 10 bf16
+     steps: finite losses, launches exactly K1 3, K2 3, K3 1 a step on
+     each rank, all 'vec', the median step ms of each rank (both ranks at
+     once on the card), the gradient all-reduce alone (the same buffer
+     and group, median of 10) and its share of the step, peak memory;
+ 29. the halo ops on a 1 x 2 'space' mesh of 2 gloo ranks on the card
+     (halos through host memory, counted: 6 exchanges forward and 1
+     backward a rank), each on the rank's z block against the unsharded
+     op on the same card: `sharded_lc(impl='pallas')` at config #3's head
+     (x [1, 160^3, 4] bf16, kernel [1, 108, 160, 160^2] bf16): forward
+     (K7) and dk (K8) bit-equal, dx (K9) bit-equal off the block's edge
+     rows and within 2^-7 of its largest magnitude on them (two bf16
+     roundings where the returned halo gradient adds), an Adam step on
+     the z block bit-equal to the unsharded step's block with moments of
+     the block's shape; `sharded_bounded_warp` (K4) at [1, 64^3, 3]
+     linear under a smooth +-8 voxel field (max_disp 8: a halo of 9 of
+     32 rows; within 1e-5) and [1, 128^3, 1] nearest with fill 0
+     (bit-equal); `sharded_separable_blur` (K6) at [3, 64^3] with 41 taps
+     and [1, 128^3] with 7 (bit-equal), 165 taps on a 64-row block
+     raising; `sharded_dice_sums` (K3) at [1, 128^3, 4] within rtol 1e-5,
+     two calls bit-equal; `sharded_conv` at a flagship conv (3^3, 16 ->
+     16, 128^3) within 1e-5 of max |y| (TF32 off); launches exactly K7,
+     K8, K9 1, K4 2, K6 6, K3 1 a rank; each op's host ms a rank (both
+     ranks at once) beside the unsharded op's on one rank alone.
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -291,7 +332,8 @@ the port.
 Prints one line per check, then a JSON line of the kernels (each with its
 path run's launches and body launches, `body_launches`, and in `paths` its
 launches and body launches on the SynthStrip, config #4, space_to_depth,
-remat, serve (one volume), classify (one step) and disk runs), and last
+remat, serve (one volume), classify (one step) and disk runs, and on the
+data-parallel and halo runs a list, one entry a rank), and last
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
 machine without a CUDA device. Run with --phases, a kernel's fields that
 no phase of the run measured are null, and both JSON lines carry the
@@ -382,12 +424,16 @@ PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
              'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
              'serve': ('24', ('pool2_fwd',)),
              'classify': ('25', ('pool2_fwd', 'pool2_bwd')),
-             'disk': ('26', ('pool2_fwd', 'pool2_bwd', 'dice_sums'))}
+             'disk': ('26', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             # per rank: a list, one entry a rank
+             'dp': ('28', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'halo': ('29', ('dice_sums', 'interpn', 'blur', 'lc_fwd',
+                             'lc_dk', 'lc_dx'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
           '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23',
-          '24', '25', '26', '27')
+          '24', '25', '26', '27', '28', '29')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -436,6 +482,9 @@ FEED_VOLS = 8
 FEED_WORKERS = 4
 FEED_BATCHES = 24
 FEED_PUTS = 3
+# the ranks of phases 28 and 29, processes on the one card
+DP_RANKS = 2
+HALO_RANKS = 2
 
 
 class Checks:
@@ -3381,6 +3430,450 @@ def phase_feed(checks):
                      f'{len(prefetch_threads())} alive')
 
 
+###############################################################################
+# phases 28 and 29: ranks on the one card (torch.distributed)
+###############################################################################
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, backend, outdir, fn, args):
+    """One spawned rank: the card, a process group of `world` over a
+    localhost port, fn(rank, world, outdir, *args) whose JSON result goes
+    to outdir/rank<r>.json. Anything it raises ends the rank non-zero."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f'tcp://localhost:{port}',
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        out = fn(rank, world, outdir, *args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(outdir, f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def spawn_ranks(fn, world, backend, outdir, *args):
+    """fn on `world` ranks started by torch.multiprocessing (spawn: CUDA
+    needs it), each loading the kernels phase 2 built; joins them (a rank
+    that fails raises here, after the others are ended) and returns their
+    results in rank order."""
+    import torch.multiprocessing as mp
+    mp.spawn(_rank_main, args=(world, free_port(), backend, outdir, fn, args),
+             nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(outdir, f'rank{r}.json')) as f:
+            out.append(json.load(f))
+    return out
+
+
+def wall_ms(fn, reps=5, warmup=2):
+    """Median host ms of fn() calls each ended by a synchronise: the time a
+    rank's op takes with its exchanges through the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def dp_batch(bs=DP_RANKS, vol=VOL):
+    """The global batch of the DP phase: bench.py's draws for `bs` items."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(bs, vol, vol, vol, 1)).astype(np.float32)
+    lab = rng.integers(0, NB_LABELS, size=(bs, vol, vol, vol))
+    return x, np.eye(NB_LABELS, dtype=np.float32)[lab]
+
+
+def dice_loss():
+    return nt.losses.SoftDice(check_input_limits=False).loss
+
+
+def dp_rank(rank, world, outdir):
+    """Phase 28 (b) on one rank of a 'data' mesh of `world` under gloo."""
+    import torch.distributed as dist
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=world, device='cuda')
+    x, y = dp_batch(world)
+    batch = parallel.shard_batch((x, y), mesh, space_axis=None)
+    out = {'backend': dist.get_backend(mesh.get_group('data'))}
+    flags = exact_f32()
+    try:
+        state = training.create_train_state(flagship(), training.adam(1e-3))
+        step = parallel.make_sharded_train_step(
+            training.make_train_step(dice_loss()), mesh, space_axis=None)
+        state, m = step(state, batch,
+                        torch.Generator(device='cuda').manual_seed(1))
+        out['f32_loss'] = float(m['loss'])
+        torch.save({'grads': {n: p.grad.cpu() for n, p in
+                              state.model.named_parameters()},
+                    'params': {n: p.detach().cpu() for n, p in
+                               state.model.named_parameters()}},
+                   os.path.join(outdir, f'rank{rank}.pt'))
+        del state, step
+    finally:
+        restore_flags(flags)
+
+    state = training.create_train_state(flagship(dtype=torch.bfloat16),
+                                        training.adam(1e-3))
+    step = parallel.make_sharded_train_step(
+        training.make_train_step(dice_loss()), mesh, space_axis=None)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    state, losses, times, counts, peak = timed_steps(step, state,
+                                                     (batch, gen))
+    # the all-reduce of a step alone: the same f32 gradient buffer, the
+    # same group, timed as the step is
+    flat = torch.cat([p.grad.reshape(-1) for p in state.model.parameters()])
+    group = mesh.get_group('data')
+    ar_ms = wall_ms(lambda: dist.all_reduce(flat, group=group), reps=10)
+    out.update(losses=losses, step_ms=1e3 * statistics.median(
+        times[WARMUP_STEPS:]), times=times, counts=counts, peak=peak,
+        allreduce_ms=ar_ms, allreduce_bytes=flat.numel() * flat.element_size())
+    return out
+
+
+def dp_reference():
+    """The single-process f32 step on the global batch: loss, gradients and
+    parameters after it (TF32 off, deterministic cuDNN)."""
+    x, y = dp_batch()
+    flags = exact_f32()
+    try:
+        state = training.create_train_state(flagship(), training.adam(1e-3))
+        step = training.make_train_step(dice_loss())
+        state, m = step(state, (torch.from_numpy(x).cuda(),
+                                torch.from_numpy(y).cuda()),
+                        torch.Generator(device='cuda').manual_seed(1))
+        return (float(m['loss']),
+                {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                {n: p.detach().cpu() for n, p in
+                 state.model.named_parameters()})
+    finally:
+        restore_flags(flags)
+
+
+def dp_one_rank_nccl(checks):
+    """Phase 28 (a): in this process, a 1 x 1 mesh over a 1-rank NCCL
+    group; 3 sharded steps against 3 plain steps from the same weights."""
+    import torch.distributed as dist
+    from neurite_tpu_torch import parallel
+    x, y = flagship_inputs()
+    runs = {}
+    flags = exact_f32()
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        mesh = parallel.create_mesh(data=1, device='cuda')
+        backend = dist.get_backend(mesh.get_group('data'))
+        for kind in ('plain', 'sharded'):
+            state = training.create_train_state(flagship(),
+                                                training.adam(1e-3))
+            step = training.make_train_step(dice_loss())
+            if kind == 'sharded':
+                step = parallel.make_sharded_train_step(step, mesh,
+                                                        space_axis=None)
+            batch = ((x, y) if kind == 'plain' else
+                     parallel.shard_batch((x, y), mesh, space_axis=None))
+            losses = []
+            for i in range(3):
+                state, m = step(state, batch,
+                                torch.Generator(device='cuda').manual_seed(i))
+                losses.append(m['loss'].detach().clone())
+            runs[kind] = (losses, [p.detach().clone()
+                                   for p in state.model.parameters()])
+            del state
+    finally:
+        dist.destroy_process_group()
+        restore_flags(flags)
+    (lp, pp), (ls, ps) = runs['plain'], runs['sharded']
+    checks.check('dp 1x1 nccl mesh: losses bit-equal to the plain step',
+                 all(bit_equal(a, b) for a, b in zip(lp, ls)),
+                 f'backend {backend}; plain {[float(v) for v in lp]} '
+                 f'sharded {[float(v) for v in ls]}')
+    checks.check('dp 1x1 nccl mesh: parameters bit-equal after 3 steps',
+                 all(bit_equal(a, b) for a, b in zip(pp, ps)),
+                 f'{len(pp)} tensors')
+
+
+def phase_dp(checks, res, card):
+    print(f'== 28. data-parallel flagship ({card})', flush=True)
+    dp_one_rank_nccl(checks)
+    ref_loss, ref_grads, ref_params = dp_reference()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(dp_rank, DP_RANKS, 'gloo', d)
+        saved = [torch.load(os.path.join(d, f'rank{r}.pt'))
+                 for r in range(DP_RANKS)]
+    per_step = {'pool2_fwd': 3, 'pool2_bwd': 3, 'dice_sums': 1}
+    for r, (out, s) in enumerate(zip(ranks, saved)):
+        tag = f'dp rank {r}/{DP_RANKS} ({out["backend"]})'
+        checks.check(f'{tag} f32 loss vs the global-batch step',
+                     abs(out['f32_loss'] - ref_loss) <= 1e-5 * abs(ref_loss),
+                     f'rank {out["f32_loss"]!r} global {ref_loss!r} '
+                     f'(rtol 1e-5)')
+        worst = max(float((s['grads'][n] - g).abs().max() / g.abs().max())
+                    for n, g in ref_grads.items())
+        checks.check(f'{tag} averaged grads vs the global-batch step',
+                     worst <= 1e-4, f'{len(ref_grads)} tensors, worst '
+                     f'max|diff|/max|g| {worst:.3g} (limit 1e-4)')
+        # Adam's first update is lr * g / (|g| + eps), about lr for any g,
+        # so a gradient near zero whose sign the sums' order flips moves
+        # its parameter 2 lr the other way
+        diffs = [(s['params'][n] - p).abs() for n, p in ref_params.items()]
+        worst = max(float(d.max()) for d in diffs)
+        moved = sum(int((d > 1e-6).sum()) for d in diffs)
+        checks.check(f'{tag} parameters vs the global-batch step',
+                     worst <= 2e-3 + 1e-6,
+                     f'max |diff| {worst:.3g} (limit 2 lr + 1e-6), '
+                     f'{moved} of {sum(d.numel() for d in diffs)} entries '
+                     f'off by more than 1e-6')
+        checks.check(f'{tag} bf16 losses finite',
+                     all(np.isfinite(out['losses'])),
+                     ' '.join(f'{v:.6f}' for v in out['losses']))
+        check_step_counts(checks, f'{tag} bf16', out['counts'], per_step,
+                          TRAIN_STEPS)
+        check_vec_bodies(checks, f'{tag} bf16', out['counts'])
+        share = out['allreduce_ms'] / out['step_ms']
+        print(f'  {tag} bf16 step ms (median of steps {WARMUP_STEPS + 1}-'
+              f'{TRAIN_STEPS}) {out["step_ms"]:.3f}; all: '
+              + ' '.join(f'{1e3 * t:.2f}' for t in out['times'])
+              + f'; gradient all-reduce {out["allreduce_ms"]:.3f} ms '
+              f'({out["allreduce_bytes"]} B), share {share:.4f}; peak '
+              f'memory {out["peak"]} B ({out["peak"] / 2 ** 30:.3f} GiB); '
+              f'{card}', flush=True)
+    for name in PATH_RUNS['dp'][1]:
+        res[name]['paths']['dp'] = [
+            {'launches': out['counts'].get(name, 0),
+             'body_launches': {c: out['counts'].get(c, 0)
+                               for c in BODY_COUNTERS[name]}}
+            for out in ranks]
+    same = all(torch.equal(saved[0]['params'][n], s['params'][n])
+               for s in saved[1:] for n in ref_params)
+    checks.check('dp ranks\' parameters bit-equal to one another', same,
+                 f'{DP_RANKS} ranks')
+
+
+def halo_rank(rank, world, outdir):
+    """Phase 29 on one rank of a 1 x `world` 'space' mesh under gloo: each
+    sharded op on this rank's z block against the unsharded kernel on the
+    same card, then times."""
+    import torch.distributed as dist
+    from neurite_tpu_torch import parallel
+    from neurite_tpu_torch.ops import conv, warp
+    from neurite_tpu_torch.parallel import mesh as pmesh
+    mesh = parallel.create_mesh(data=1, space=world, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(29)
+    out = {'checks': [], 'ms': {}}
+
+    def check(name, ok, detail=''):
+        out['checks'].append((f'halo rank {rank}/{world} {name}', bool(ok),
+                              detail))
+
+    def block(t, axis=1):
+        n = t.shape[axis] // world
+        return t.narrow(axis, rank * n, n)
+
+    # the unsharded references, before the path run
+    x = torch.randn((1, LC_VOL, LC_VOL, LC_VOL, 4), generator=gen,
+                    device='cuda').to(torch.bfloat16)
+    k = (0.1 * torch.randn((1, 108, LC_VOL, LC_VOL ** 2), generator=gen,
+                           device='cuda')).to(torch.bfloat16)
+    g = torch.randn((1, LC_VOL, LC_VOL, LC_VOL, 1), generator=gen,
+                    device='cuda')
+    xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+    yr = lc_cuda.lc_transposed_pallas(xr, kr.reshape(1, 108, -1), LC_KS)
+    (yr * g).sum().backward()
+    opt_r = torch.optim.Adam([kr], lr=1e-4)
+    opt_r.step()
+    warps = []
+    for shape, method, fill in (((64, 64, 64), 'linear', None),
+                                ((VOL, VOL, VOL), 'nearest', 0.)):
+        chans = 3 if method == 'linear' else 1
+        vol = torch.randn((1, *shape, chans), generator=gen, device='cuda')
+        shift = smooth_field(shape, 8., gen)
+        loc = core.grid_points(shape, 'cuda')[None] + shift
+        warps.append((vol, shift, method, fill,
+                      warp.interpn_batch(vol, loc, method, fill)))
+    blurs = []
+    for shape, sigma, width in (((3, 64, 64, 64), 16 / 2.355, 41),
+                                ((1, VOL, VOL, VOL), 1., 7)):
+        xb = torch.randn(shape, generator=gen, device='cuda')
+        k1 = core.gaussian_kernel(sigma, windowsize=width, device='cuda')
+        blurs.append((xb, k1, blur.blur3d(xb, [k1, k1, k1])))
+    dt = torch.rand((1, VOL, VOL, VOL, NB_LABELS), generator=gen,
+                    device='cuda')
+    dp_ = torch.rand((1, VOL, VOL, VOL, NB_LABELS), generator=gen,
+                     device='cuda')
+    dice_ref = dice_red.dice_sums(dt.reshape(1, -1, NB_LABELS),
+                                  dp_.reshape(1, -1, NB_LABELS))
+    cx = torch.randn((1, VOL, VOL, VOL, 16), generator=gen, device='cuda')
+    ck = 0.1 * torch.randn((3, 3, 3, 16, 16), generator=gen, device='cuda')
+    flags = exact_f32()
+    conv_ref = conv.conv_same(cx, ck)
+    torch.cuda.synchronize()
+
+    # the path run: each op once on this rank's block
+    dist.barrier()
+    _build.launches.clear()
+    pmesh.host_staged.clear()
+    xs = block(x).detach().requires_grad_()
+    ks = torch.nn.Parameter(block(k, 2).detach().clone())
+    ys = parallel.sharded_lc(xs, ks, LC_KS, mesh, impl='pallas')
+    (ys * block(g)).sum().backward()
+    opt = torch.optim.Adam([ks], lr=1e-4)
+    opt.step()
+    warp_out = [parallel.sharded_bounded_warp(
+        block(vol), block(shift), mesh, max_disp=8., interp_method=method,
+        fill_value=fill) for vol, shift, method, fill, _ in warps]
+    blur_out = [parallel.sharded_separable_blur(
+        block(xb).movedim(0, -1)[None], [k1] * 3, mesh)[0].movedim(-1, 0)
+        for xb, k1, _ in blurs]
+    dice = parallel.sharded_dice_sums(block(dt), block(dp_), mesh)
+    conv_out = parallel.sharded_conv(block(cx), ck, mesh)
+    torch.cuda.synchronize()
+    out['counts'] = dict(_build.launches)
+    out['staged'] = dict(pmesh.host_staged)
+    out['backend'] = dist.get_backend(mesh.get_group('space'))
+    ys = ys.detach()
+
+    # the checks
+    h = 1                                  # LC_KS's z halo
+    check('sharded_lc pallas forward bit-equal to the unsharded K7',
+          bit_equal(ys, block(yr)), f'max abs err '
+          f'{max_abs_err(ys, block(yr)):.3g}')
+    dk_ref = block(kr.grad, 2)
+    check('sharded_lc pallas dk bit-equal to the unsharded K8',
+          bit_equal(ks.grad, dk_ref),
+          f'max abs err {max_abs_err(ks.grad, dk_ref):.3g}')
+    dx_ref = block(xr.grad)
+    inner = slice(h, xs.shape[1] - h)
+    err = max_abs_err(xs.grad, dx_ref)
+    tol = 2 ** -7 * float(dx_ref.float().abs().max())
+    check('sharded_lc pallas dx vs the unsharded K9', err <= tol,
+          f'max abs err {err:.3g} (limit {tol:.3g}: two bf16 roundings '
+          f'where the returned halo gradient adds)')
+    check('sharded_lc dx rows off the block edges bit-equal',
+          bit_equal(xs.grad[:, inner], dx_ref[:, inner]))
+    mom = opt.state[ks]['exp_avg']
+    check('sharded_lc Adam step on the z-sharded kernel',
+          bit_equal(ks.detach(), block(kr.detach(), 2))
+          and tuple(mom.shape) == tuple(ks.shape),
+          f'kernel block {tuple(ks.shape)} bit-equal to the unsharded '
+          f'step\'s; moments {tuple(mom.shape)}')
+    for (vol, shift, method, fill, ref), got in zip(warps, warp_out):
+        tag = f'sharded_bounded_warp {method} {list(vol.shape)}'
+        err = max_abs_err(got, block(ref))
+        ok = (bit_equal(got, block(ref)) if method == 'nearest'
+              else err <= 1e-5)
+        check(f'{tag} vs the unsharded K4', ok,
+              f'max abs err {err:.3g} ('
+              + ('bit-equal' if method == 'nearest' else 'limit 1e-5')
+              + f'; |shift| <= {float(shift.abs().max()):.3f}, halo 9 of '
+              f'{vol.shape[1] // world} rows; bit-equal '
+              f'{bit_equal(got, block(ref))})')
+    for (xb, k1, ref), got in zip(blurs, blur_out):
+        check(f'sharded_separable_blur {list(xb.shape)} {k1.numel()} taps '
+              f'bit-equal to the unsharded K6', bit_equal(got, block(ref)),
+              f'max abs err {max_abs_err(got, block(ref)):.3g}')
+    try:
+        parallel.sharded_separable_blur(
+            block(blurs[1][0]).movedim(0, -1)[None], [core.gaussian_kernel(
+                64 / 2.355, windowsize=165, device='cuda')] * 3, mesh)
+        raised = ''
+    except ValueError as e:
+        raised = str(e)
+    check('sharded_separable_blur 165 taps on a 64-row block raises',
+          raised == 'halo 82 exceeds local extent 64', repr(raised))
+    errs = [max_abs_err(a, b) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(dice, dice_ref)]
+    again = parallel.sharded_dice_sums(block(dt), block(dp_), mesh)
+    check('sharded_dice_sums vs the unsharded K3', max(errs) <= 1e-5,
+          f'max rel err {max(errs):.3g} (rtol 1e-5); a second call '
+          f'bit-equal: {all(bit_equal(a, b) for a, b in zip(dice, again))}')
+    err = rel_err(conv_out, block(conv_ref))
+    check('sharded_conv 3x3x3 16->16 vs the unsharded conv', err <= 1e-5,
+          f'max |diff| / max |y| {err:.3g} (limit 1e-5)')
+
+    # times: the sharded op on every rank at once, the unsharded on rank 0
+    # alone
+    ms = out['ms']
+    ops = {
+        'sharded_lc fwd+bwd': (
+            lambda: (parallel.sharded_lc(xs, ks, LC_KS, mesh, impl='pallas')
+                     * block(g)).sum().backward(),
+            lambda: (lc_cuda.lc_transposed_pallas(
+                xr, kr.reshape(1, 108, -1), LC_KS) * g).sum().backward()),
+        'sharded_bounded_warp linear 64^3': (
+            lambda: parallel.sharded_bounded_warp(
+                block(warps[0][0]), block(warps[0][1]), mesh, 8.),
+            lambda: spatial.batch_transform(warps[0][0], warps[0][1])),
+        'sharded_separable_blur [3, 64^3] 41 taps': (
+            lambda: parallel.sharded_separable_blur(
+                block(blurs[0][0]).movedim(0, -1)[None], [blurs[0][1]] * 3,
+                mesh),
+            lambda: blur.blur3d(blurs[0][0], [blurs[0][1]] * 3)),
+        'sharded_dice_sums [1, 128^3, 4]': (
+            lambda: parallel.sharded_dice_sums(block(dt), block(dp_), mesh),
+            lambda: dice_red.dice_sums(dt.reshape(1, -1, NB_LABELS),
+                                       dp_.reshape(1, -1, NB_LABELS))),
+        'sharded_conv 128^3 16->16': (
+            lambda: parallel.sharded_conv(block(cx), ck, mesh),
+            lambda: conv.conv_same(cx, ck)),
+    }
+    for name, (sharded, whole) in ops.items():
+        dist.barrier()
+        ms[name] = {'sharded': wall_ms(sharded)}
+        dist.barrier()
+        if rank == 0:
+            ms[name]['unsharded'] = wall_ms(whole)
+        dist.barrier()
+    restore_flags(flags)
+    return out
+
+
+def phase_halo(checks, res, card):
+    print(f'== 29. halo ops on a space={HALO_RANKS} mesh ({card})',
+          flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(halo_rank, HALO_RANKS, 'gloo', d)
+    want = {'lc_fwd': 1, 'lc_dk': 1, 'lc_dx': 1, 'interpn': 2, 'blur': 6,
+            'dice_sums': 1}
+    for r, out in enumerate(ranks):
+        for name, ok, detail in out['checks']:
+            checks.check(name, ok, detail)
+        tag = f'halo rank {r}/{HALO_RANKS} ({out["backend"]})'
+        check_step_counts(checks, tag, out['counts'], want, 1, unit='run')
+        check_vec_bodies(checks, tag, out['counts'])
+        staged = out['staged']
+        checks.check(f'{tag} host-staged halo exchanges',
+                     staged.get('halo', 0) == 6
+                     and staged.get('halo_grad', 0) == 1,
+                     f'{staged} (gloo moves CPU tensors only: 6 exchanges '
+                     f'forward, 1 backward)')
+        for name, t in out['ms'].items():
+            print(f'  {tag} {name}: {t["sharded"]:.3f} ms a rank, both '
+                  f'ranks at once, halos through the host'
+                  + (f'; unsharded on one rank alone {t["unsharded"]:.3f} '
+                     f'ms' if 'unsharded' in t else '') + f'; {card}',
+                  flush=True)
+    for name in PATH_RUNS['halo'][1]:
+        res[name]['paths']['halo'] = [
+            {'launches': out['counts'].get(name, 0),
+             'body_launches': {c: out['counts'].get(c, 0)
+                               for c in BODY_COUNTERS[name]}}
+            for out in ranks]
+
+
 def report_profile(label, fn, first, calls=PROFILE_STEPS):
     """Wall time, device busy time and idle share of `calls` calls
     fn(first), fn(first + 1), ..., and the device time by kernel; returns
@@ -3459,6 +3952,8 @@ def main(argv=None):
         '25': lambda: phase_classify(checks, res),
         '26': lambda: phase_disk(checks, res),
         '27': lambda: phase_feed(checks),
+        '28': lambda: phase_dp(checks, res, card),
+        '29': lambda: phase_halo(checks, res, card),
     }
     for name, fn in phases.items():
         if name in run:
@@ -3490,8 +3985,11 @@ def main(argv=None):
           f'launches on the SynthStrip run (phase 17), K1 and K2 on the '
           f'config #4 run (phase 19), K1-K3 on the space_to_depth and '
           f'remat flagship runs (phases 22 and 23), K1 on one serve volume '
-          f'(phase 24), K1-K2 on one EncoderNet step (phase 25) and K1-K3 '
-          f'on the flagship trained from disk (phase 26)')
+          f'(phase 24), K1-K2 on one EncoderNet step (phase 25), K1-K3 '
+          f'on the flagship trained from disk (phase 26), each rank\'s '
+          f'K1-K3 on 10 data-parallel steps (phase 28, `dp`) and each '
+          f'rank\'s K3, K4, K6 and K7-K9 on one run of the halo ops '
+          f'(phase 29, `halo`)')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}

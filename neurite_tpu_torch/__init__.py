@@ -29,4 +29,5 @@ from neurite_tpu_torch import dataproc  # noqa: F401
 from neurite_tpu_torch import data  # noqa: F401
 from neurite_tpu_torch import callbacks  # noqa: F401
 from neurite_tpu_torch import modelio  # noqa: F401
+from neurite_tpu_torch import parallel  # noqa: F401
 from neurite_tpu_torch.py import plot  # noqa: F401

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neurite_tpu_torch import backend, modelio, training
 
@@ -280,7 +281,14 @@ class PlotTestSlices:
 class ModelCheckpointParallel(ModelCheckpoint):
     """
     Reference `ModelCheckpointParallel` (`callbacks.py:484-607`) unwrapped
-    keras multi-GPU replicas before saving. The port trains one model on one
-    card (several cards: ROADMAP Queue 1 item 9), so this is
-    `ModelCheckpoint`, kept for API parity.
+    keras multi-GPU replicas before saving. Under data parallelism
+    (`parallel.make_sharded_train_step`) every rank holds the same
+    replicated state, so only rank 0 of the process group writes, once, as
+    JAX's single controller does; without a process group this is
+    `ModelCheckpoint`.
     """
+
+    def _save(self, path, state):
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
+        super()._save(path, state)

@@ -18,21 +18,29 @@ import torch.nn as nn
 from neurite_tpu_torch import backend
 
 
-def _check_axis_name(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            f'axis_name={axis_name!r}: a data-parallel reduction of the '
-            f'stream statistics needs the parallel port (ROADMAP Queue 1 '
-            f'item 9); only axis_name=None is supported')
+def _global_sums(axis_name, *parts):
+    """The batch's sums (tensors; the batch size a float) added over the
+    ranks of mesh axis `axis_name` in one all-reduce (JAX's `lax.psum` of
+    each); returned as they are when axis_name is None."""
+    if axis_name is None:
+        return parts
+    from neurite_tpu_torch.parallel import mesh
+    ts = [torch.as_tensor(p, dtype=torch.float32,
+                          device=parts[0].device).reshape(-1) for p in parts]
+    flat = mesh._all_reduce_(torch.cat(ts), mesh._axis_group(axis_name))
+    out = flat.split([t.numel() for t in ts])
+    return [o.view_as(p) if torch.is_tensor(p) else o[0]
+            for o, p in zip(out, parts)]
 
 
-def _mean_update(pre_mean, pre_count, x, pre_cap):
+def _mean_update(pre_mean, pre_count, x, pre_cap, axis_name=None):
     """Cap-weighted streaming mean (ref `layers.py:2059-2073`): the new
-    mean and count after batch x."""
-    this_bs = x.shape[0]
+    mean and count after batch x (with `axis_name`, after the global batch
+    of the ranks of that mesh axis)."""
+    this_sum, this_bs = _global_sums(axis_name, x.sum(0), x.shape[0])
     new_count = pre_count + this_bs
     alpha = this_bs / torch.clamp(new_count, max=pre_cap)
-    new_mean = pre_mean * (1 - alpha) + (x.sum(0) / this_bs) * alpha
+    new_mean = pre_mean * (1 - alpha) + (this_sum / this_bs) * alpha
     return new_mean, new_count
 
 
@@ -43,8 +51,8 @@ class _Stream(nn.Module):
 
     def __init__(self, input_shape, cap=100, axis_name=None, device=None):
         super().__init__()
-        _check_axis_name(axis_name)
         self.cap = float(cap)
+        self.axis_name = axis_name
         self.register_buffer('mean', torch.zeros(tuple(input_shape)))
         self.register_buffer('count', torch.zeros(1))
         self.to(backend.resolve_device(device))
@@ -71,7 +79,8 @@ class MeanStream(_Stream):
         if not training:
             mean, count = self.mean, self.count
         else:
-            mean, count = _mean_update(self.mean, self.count, x, self.cap)
+            mean, count = _mean_update(self.mean, self.count, x, self.cap,
+                                       self.axis_name)
             with torch.no_grad():
                 self.mean.copy_(mean)
                 self.count.copy_(count)
@@ -100,11 +109,14 @@ class CovStream(_Stream):
         if not training:
             cov, count = self.cov, self.count
         else:
-            mean, count = _mean_update(self.mean, self.count, x, self.cap)
+            mean, count = _mean_update(self.mean, self.count, x, self.cap,
+                                       self.axis_name)
             x_flat = x.reshape(batch, -1)
+            c_sum, this_bs = _global_sums(self.axis_name, x_flat.T @ x_flat,
+                                          batch)
             prev_cap = torch.clamp(self.count, max=self.cap)
-            c = self.cov * (prev_cap - 1) + x_flat.T @ x_flat
-            cov = c / (prev_cap + batch - 1)
+            c = self.cov * (prev_cap - 1) + c_sum
+            cov = c / (prev_cap + this_bs - 1)
             with torch.no_grad():
                 self.mean.copy_(mean)
                 self.cov.copy_(cov)

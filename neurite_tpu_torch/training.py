@@ -59,15 +59,13 @@ def make_train_step(loss_fn, has_aux_vars=False, rng_names=('dropout',),
     has_aux_vars and rng_names keep JAX's signature and change nothing: a
     module's buffers (BatchNorm statistics) update in place whatever
     has_aux_vars says, and one generator serves every random stream.
-    axis_name (JAX's gradient mean over a mesh axis) raises unless None:
-    data parallelism needs the parallel port (ROADMAP Queue 1 item 9).
+
+    With `axis_name` (a dim of the mesh this process made,
+    `parallel.create_mesh`), each rank runs the step on its own batch, and
+    the gradients and the loss are averaged over that dim's group before
+    the optimizer steps (JAX's `lax.pmean`; `training.py:85-87` there).
     """
     del has_aux_vars, rng_names
-    if axis_name is not None:
-        raise NotImplementedError(
-            f'axis_name={axis_name!r}: a gradient mean over a mesh axis '
-            f'needs the parallel port (ROADMAP Queue 1 item 9); only '
-            f'axis_name=None is supported')
 
     def step(state, batch, generator=None):
         x, y = _split(batch)
@@ -76,6 +74,11 @@ def make_train_step(loss_fn, has_aux_vars=False, rng_names=('dropout',),
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(y, model(x, training=True, generator=generator))
         loss.backward()
+        if axis_name is not None:
+            from neurite_tpu_torch.parallel import mesh
+            ax = mesh._axis_group(axis_name)
+            mesh._mean_grads(model.parameters(), ax)
+            loss = mesh._mean_metrics({'loss': loss}, ax)['loss']
         state.optimizer.step()
         state.step += 1
         return state, {'loss': loss.detach()}

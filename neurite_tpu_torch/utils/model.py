@@ -14,6 +14,7 @@ modules (they do not run).
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def stack_models(apply_fns):
@@ -179,19 +180,36 @@ def copy_weights(src, dst, verbose=False):
     return dst
 
 
-def robust_multi_gpu(train_step, verbose=True, **kwargs):
+def robust_multi_gpu(train_step, verbose=True, device=None, **kwargs):
     """
-    The train step for the visible cards (ref `robust_multi_gpu`,
-    `model.py:298-321`): with one card or none, the step unchanged (JAX
-    `model.py:197-205`). Data parallelism over several cards is ROADMAP
-    Queue 1 item 9, not ported yet, so more than one card raises.
+    The train step for the ranks of this run (ref `robust_multi_gpu`,
+    `model.py:298-321`, which wrapped a keras model for several GPUs).
+    In a process group of more than one rank (`torchrun`, or processes
+    that called `init_process_group`): `parallel.make_sharded_train_step`
+    over a 'data' mesh of every rank, with the mesh as `.mesh` (JAX
+    `model.py:207-214`); feed it `parallel.shard_batch(batch, wrapped.mesh,
+    space_axis=None)`. `device` is the ranks' device (the card unless the
+    caller passes 'cpu'); kwargs pass through to `make_sharded_train_step`.
+    With one process: the step unchanged (JAX `model.py:197-205`), or a
+    raise if several cards are visible, since one process drives one card.
     """
+    from neurite_tpu_torch import parallel
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1:
+        mesh = parallel.create_mesh(data=world, device=device)
+        if verbose:
+            print(f'robust_multi_gpu: data-parallel over {world} ranks')
+        wrapped = parallel.make_sharded_train_step(train_step, mesh,
+                                                   **kwargs)
+        wrapped.mesh = mesh
+        return wrapped
     n = torch.cuda.device_count()
     if n > 1:
         raise NotImplementedError(
-            f'robust_multi_gpu: {n} cards visible; data parallelism over '
-            f'several cards is not ported yet (ROADMAP Queue 1 item 9, '
-            f'parallel)')
+            f'robust_multi_gpu: {n} cards visible to one process; the port '
+            f'runs one process a card: start one rank a card with torchrun '
+            f'(torchrun --nproc-per-node={n} script.py, which calls '
+            f'init_process_group("nccl")) and call robust_multi_gpu in each')
     if verbose:
         print('robust_multi_gpu: one device visible — returning the step '
               'unchanged')

@@ -41,6 +41,14 @@ MORE_PUBLIC = {
     'generators': ['VolumeDataset', 'prefetch_to_device'],
     'data': ['synthetic_shapes', 'Dataset'],
     'py.data': ['DataSplit', 'split_dataset', 'load_dataset'],
+    # the mesh and halo ops; their parameters are JAX's, and the meshes'
+    # device ('device', PORT_ONLY) is the one torch-only parameter: the
+    # process group, and so the backend, is the caller's
+    'parallel': ['create_mesh', 'batch_sharding', 'replicated', 'shard_batch',
+                 'make_sharded_train_step', 'shard_batch_multihost',
+                 'state_shardings_for', 'halo_exchange', 'sharded_conv',
+                 'sharded_separable_blur', 'sharded_dice_sums', 'sharded_lc',
+                 'sharded_bounded_warp'],
 }
 PUBLIC = {m: sorted(set(REFERENCE_API.get(m, []) + MORE_PUBLIC.get(m, [])))
           for m in sorted(set(REFERENCE_API) | set(MORE_PUBLIC))}
@@ -169,6 +177,11 @@ def test_listed_differences_are_real():
         assert name in PUBLIC[module] and params and reason
         pt = _params(getattr(_module(nt, module), name))
         assert not set(params) & set(pt)
+
+
+def test_parallel_axis_names():
+    assert (nt.parallel.DATA_AXIS, nt.parallel.SPACE_AXIS) == \
+        (ne.parallel.DATA_AXIS, ne.parallel.SPACE_AXIS) == ('data', 'space')
 
 
 def test_counts():

@@ -190,6 +190,14 @@ def test_stream_gradient_and_axis_name(name):
     _grads_vs_jax(lambda a: tm(a, training=True),
                   lambda a: jm.apply(state, a, training=True,
                                      mutable=['stream_stats'])[0], [x])
+    # on the one-process 1 x 1 mesh the sums over 'data' are the identity
+    # (the gloo ranks: tests/test_torch_parallel.py)
+    nt.parallel.create_mesh(device='cpu')
     for cls in (nt.layers.MeanStream, nt.layers.CovStream):
-        with pytest.raises(NotImplementedError, match='item 9'):
-            cls((4,), axis_name='data')
+        plain, dp = cls((4,), cap=2, device='cpu'), cls(
+            (4,), cap=2, axis_name='data', device='cpu')
+        for _ in range(2):
+            assert torch.equal(plain(torch.from_numpy(x), training=True),
+                               dp(torch.from_numpy(x), training=True))
+        for (n, a), (_, b) in zip(plain.named_buffers(), dp.named_buffers()):
+            assert torch.equal(a, b), n

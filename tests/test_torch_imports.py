@@ -54,5 +54,7 @@ def test_port_imports_without_jax_flax_optax_orbax_or_matplotlib():
               'neurite_tpu_torch.io.medio', 'neurite_tpu_torch.io.native',
               'neurite_tpu_torch.generators', 'neurite_tpu_torch.dataproc',
               'neurite_tpu_torch.data', 'neurite_tpu_torch.py.data',
-              'neurite_tpu_torch.ops.conv'):
+              'neurite_tpu_torch.ops.conv', 'neurite_tpu_torch.parallel',
+              'neurite_tpu_torch.parallel.mesh',
+              'neurite_tpu_torch.parallel.halo'):
         assert m in want

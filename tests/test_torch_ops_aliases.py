@@ -161,20 +161,27 @@ def _small_model(seed):
 
 def test_make_train_step_keywords():
     loss = nt.losses.SoftDice().loss
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
-        training.make_train_step(loss, axis_name='batch')
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.normal(size=(1, 8, 8, 8, 1)).astype(np.float32))
     y = torch.nn.functional.one_hot(
         torch.from_numpy(rng.integers(0, 2, size=(1, 8, 8, 8))), 2).float()
+    # axis_name names a dim of the process's mesh: a name the mesh lacks
+    # raises at the step; on the one-process 1 x 1 mesh the mean over
+    # 'data' is the identity (the gloo ranks: tests/test_torch_parallel.py)
+    nt.parallel.create_mesh(device='cpu')
+    state = training.create_train_state(_small_model(0), training.adam(1e-3))
+    with pytest.raises(ValueError, match="no mesh axis 'batch'"):
+        training.make_train_step(loss, axis_name='batch')(
+            state, (x, y), torch.Generator().manual_seed(3))
     losses = []
-    for kw in ({}, dict(has_aux_vars=True, rng_names=('dropout', 'noise'))):
+    for kw in ({}, dict(has_aux_vars=True, rng_names=('dropout', 'noise')),
+               dict(axis_name='data')):
         state = training.create_train_state(_small_model(0),
                                             training.adam(1e-3))
         step = training.make_train_step(loss, **kw)
         _, m = step(state, (x, y), torch.Generator().manual_seed(3))
         losses.append(float(m['loss']))
-    assert losses[0] == losses[1]
+    assert losses[0] == losses[1] == losses[2]
 
 
 def test_fit_rng_is_an_integer_seed():
