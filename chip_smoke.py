@@ -20,8 +20,10 @@ volumes on disk (`generators.vol_seg` -> `prefetch_to_device` ->
 `training.fit`) beside the threaded feed of `bench.py:292-339`, the
 flagship trained data-parallel over ranks (`parallel.create_mesh`,
 `shard_batch`, `make_sharded_train_step`) and the z-sharded halo ops of
-`parallel` at config #3's and config #5's widths; and checks
-every hand-written kernel on them
+`parallel` at config #3's and config #5's widths, the whole flagship and
+config #3's model partitioned along z over ranks
+(`make_sharded_train_step` on a 'space' mesh), and the six
+`examples_torch` scripts; and checks every hand-written kernel on them
 against its plain PyTorch version, each path's launch counts set to 0 just
 before it and read just after. Phases (phase
 1 runs whatever --phases names):
@@ -359,6 +361,7 @@ import neurite_tpu_torch as nt
 from neurite_tpu_torch import training
 from neurite_tpu_torch.layers import sparse
 from neurite_tpu_torch.models.ae import Dense
+from neurite_tpu_torch.models.unet import Conv
 from neurite_tpu_torch.io import tiling
 from neurite_tpu_torch.ops import (_build, blur, blur_cuda, dice_red, lc_cuda,
                                    mi_hist, mi_hist_cuda, pool, pool_cuda,
@@ -428,12 +431,15 @@ PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
              # per rank: a list, one entry a rank
              'dp': ('28', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
              'halo': ('29', ('dice_sums', 'interpn', 'blur', 'lc_fwd',
-                             'lc_dk', 'lc_dx'))}
+                             'lc_dk', 'lc_dx')),
+             'space': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'space_lc': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
+                                 'lc_fwd', 'lc_dk', 'lc_dx'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
           '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23',
-          '24', '25', '26', '27', '28', '29')
+          '24', '25', '26', '27', '28', '29', '30', '31')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -482,9 +488,14 @@ FEED_VOLS = 8
 FEED_WORKERS = 4
 FEED_BATCHES = 24
 FEED_PUTS = 3
-# the ranks of phases 28 and 29, processes on the one card
+# the ranks of phases 28, 29 and 30, processes on the one card
 DP_RANKS = 2
 HALO_RANKS = 2
+SPACE_RANKS = 2
+# config #3's head split over 'space' by JAX's specs (P(None, None,
+# 'space') on the [O, TC, V] kernel, P('space') on the bias)
+LC_SPECS = {"['lc']['kernel']": (None, None, 'space'),
+            "['lc']['bias']": ('space',)}
 
 
 class Checks:
@@ -1806,7 +1817,11 @@ class EncDecLC(torch.nn.Module):
     """Config #3 (`bench.py:335-372`): the UNet trunk feeding a
     LocallyConnected3D head. Attribute names follow the flax tree
     (`ne.models.unet` drops its name, so flax calls the trunk UNet_0).
-    impl='plain' takes the plain pool and LC forms on the card."""
+    impl='plain' takes the plain pool and LC forms on the card. It computes
+    nothing of its own, so under spatial sharding it is a 'local'
+    container (`parallel.spatial`)."""
+
+    spatial_rule = 'local'
 
     def __init__(self, size, dtype, impl='auto'):
         super().__init__()
@@ -3874,6 +3889,336 @@ def phase_halo(checks, res, card):
             for out in ranks]
 
 
+def space_flagship(rank, mesh, out):
+    """Phase 30 (a) on one rank: the flagship's f32 step (saved for the
+    parent's comparison) and 10 bf16 steps on this rank's z block."""
+    import torch.distributed as dist
+    from neurite_tpu_torch import parallel
+    from neurite_tpu_torch.parallel import mesh as pmesh, spatial as psp
+    x, y = flagship_inputs()
+    batch = parallel.shard_batch((x, y), mesh)
+    del x, y
+    flags = exact_f32()
+    try:
+        state = training.create_train_state(flagship(), training.adam(1e-3))
+        step = parallel.make_sharded_train_step(
+            training.make_train_step(dice_loss()), mesh)
+        state, m = step(state, batch,
+                        torch.Generator(device='cuda').manual_seed(1))
+        out['f32_loss'] = float(m['loss'])
+        out['block'] = list(batch[0].shape)
+        torch.save({'grads': {n: p.grad.cpu() for n, p in
+                              state.model.named_parameters()},
+                    'params': {n: p.detach().cpu() for n, p in
+                               state.model.named_parameters()}},
+                   os.path.join(out['dir'], f'rank{rank}.pt'))
+        del state, step
+    finally:
+        restore_flags(flags)
+    model = flagship(dtype=torch.bfloat16)
+    state = training.create_train_state(model, training.adam(1e-3))
+    step = parallel.make_sharded_train_step(
+        training.make_train_step(dice_loss()), mesh)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    psp.gathered.clear()
+    pmesh.host_staged.clear()
+    state, losses, times, counts, peak = timed_steps(step, state,
+                                                     (batch, gen))
+    out['a'] = dict(losses=losses, times=times, counts=counts, peak=peak,
+                    step_ms=1e3 * statistics.median(times[WARMUP_STEPS:]),
+                    gathered=dict(psp.gathered),
+                    staged=dict(pmesh.host_staged),
+                    halo_convs=sum(isinstance(m, Conv)
+                                   for m in model.modules()))
+    # the step's parts that the sharding adds, alone, on both ranks at once:
+    # one gather of the loss pair's f32 tensor, and one exchange of a
+    # level-1 conv's input block (16 bf16 channels, one row a side)
+    from neurite_tpu_torch.parallel import halo
+    ax = pmesh._axis(mesh, 'space')
+    yb = batch[1]
+    xb = torch.zeros((1, yb.shape[1], VOL, VOL, 16), dtype=torch.bfloat16,
+                     device=yb.device)
+    dist.barrier()
+    out['a']['gather_ms'] = wall_ms(
+        lambda: psp._Gather.apply(yb, 1, ax, False))
+    dist.barrier()
+    out['a']['exchange_ms'] = wall_ms(lambda: halo._halo(xb, 1, 1, ax))
+
+
+def space_lc(rank, mesh, out):
+    """Phase 30 (b) on one rank: config #3 with its head split over
+    'space', the first step checked against the unsharded kernels on the
+    gathered inputs, then 10 timed steps."""
+    from neurite_tpu_torch import parallel
+    from neurite_tpu_torch.parallel import mesh as pmesh, spatial as psp
+    checks = out['checks']
+
+    def check(name, ok, detail=''):
+        checks.append((f'space rank {rank} config #3 {name}', bool(ok),
+                       detail))
+
+    ax = pmesh._axis(mesh, 'space')
+    n = LC_VOL // ax.size
+
+    def block(t, axis=1):
+        return t.narrow(axis, rank * n, n)
+
+    def whole(t, axis=1):
+        with torch.no_grad():
+            return psp._Gather.apply(t.contiguous(), axis, ax, False)
+
+    x, y = config3_inputs(LC_VOL)
+    batch = parallel.shard_batch((x, y), mesh)
+    del x, y
+    model = EncDecLC(LC_VOL, torch.bfloat16)
+    lc = model.lc
+    state = training.create_train_state(model, training.adam(1e-4))
+    step = parallel.make_sharded_train_step(
+        training.make_train_step(mse), mesh, param_specs=LC_SPECS)
+    cap = {}
+
+    def pre(mod, args):
+        cap['x'] = args[0].detach().clone()
+        cap['k'] = mod.kernel.detach().clone()
+        cap['b'] = mod.bias.detach().clone()
+        args[0].register_hook(lambda g: cap.__setitem__('dx', g.clone()))
+
+    def post(mod, args, result):
+        cap['y'] = result.detach().clone()
+        result.register_hook(lambda g: cap.__setitem__('g', g.clone()))
+
+    hooks = [lc.register_forward_pre_hook(pre), lc.register_forward_hook(post)]
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    psp.gathered.clear()
+    pmesh.host_staged.clear()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    out['b_first'] = dict(counts=dict(_build.launches),
+                          gathered=dict(psp.gathered),
+                          staged=dict(pmesh.host_staged), loss=float(m['loss']))
+    for h in hooks:
+        h.remove()
+    dk = lc.kernel.grad.detach().clone()
+    mom = state.optimizer.state[lc.kernel]['exp_avg']
+    want = (1, 108, n * LC_VOL ** 2)
+    check('kernel block and moments', tuple(lc.kernel.shape) == want
+          and tuple(mom.shape) == want and tuple(lc.bias.shape)
+          == (n, LC_VOL, LC_VOL, 1),
+          f'kernel {tuple(lc.kernel.shape)} (the [1, 108, {n}, '
+          f'{LC_VOL}^2] z block of [1, 108, {LC_VOL}, {LC_VOL}^2]), '
+          f'moments {tuple(mom.shape)} {mom.dtype}, bias '
+          f'{tuple(lc.bias.shape)}')
+
+    # the unsharded kernels on the gathered inputs, after the path run
+    xw = whole(cap['x']).requires_grad_()
+    kw = whole(cap['k'].reshape(1, 108, n, -1), 2).reshape(1, 108, -1)
+    kw.requires_grad_()
+    yw = lc_cuda.lc_transposed_pallas(xw, kw, LC_KS).to(xw.dtype) \
+        + whole(cap['b'], 0)
+    yw.backward(whole(cap['g']))
+    check('head output (K7 and the bias) bit-equal to the unsharded K7',
+          bit_equal(cap['y'], block(yw.detach())),
+          f'max abs err {max_abs_err(cap["y"], block(yw.detach())):.3g}')
+    dk_ref = kw.grad.reshape(1, 108, LC_VOL, -1).narrow(2, rank * n, n)
+    dk_ref = dk_ref.reshape(dk.shape)
+    check('head dk bit-equal to the unsharded K8', bit_equal(dk, dk_ref),
+          f'max abs err {max_abs_err(dk, dk_ref):.3g}')
+    dx, dx_ref = cap['dx'], block(xw.grad)
+    err = max_abs_err(dx, dx_ref)
+    tol = 2 ** -7 * float(dx_ref.float().abs().max())
+    check('head dx vs the unsharded K9', err <= tol,
+          f'max abs err {err:.3g} (limit {tol:.3g}: two bf16 roundings '
+          f'where the returned halo gradient adds)')
+    check('head dx rows off the block edges bit-equal',
+          bit_equal(dx[:, 1:n - 1], dx_ref[:, 1:n - 1]))
+    del xw, kw, yw, cap, dk, dk_ref, dx, dx_ref
+    psp.gathered.clear()
+    pmesh.host_staged.clear()
+    state, losses, times, counts, peak = timed_steps(step, state, (batch,))
+    out['b'] = dict(losses=losses, times=times, counts=counts, peak=peak,
+                    step_ms=1e3 * statistics.median(times[WARMUP_STEPS:]),
+                    gathered=dict(psp.gathered),
+                    staged=dict(pmesh.host_staged),
+                    halo_convs=sum(isinstance(m, Conv)
+                                   for m in model.modules()))
+
+
+def space_rank(rank, world, outdir):
+    """Phase 30 on one rank of a 1 x `world` 'space' mesh under gloo."""
+    import torch.distributed as dist
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=1, space=world, device='cuda')
+    out = {'backend': dist.get_backend(mesh.get_group('space')),
+           'checks': [], 'dir': outdir}
+    space_flagship(rank, mesh, out)
+    torch.cuda.empty_cache()
+    space_lc(rank, mesh, out)
+    return out
+
+
+def space_reference():
+    """The single-process references of phase 30: the flagship's f32 step
+    (loss, gradients, parameters; TF32 off, deterministic cuDNN) and the
+    peak memory of 3 unsharded bf16 flagship steps and of 3 unsharded bf16
+    config #3 steps."""
+    x, y = flagship_inputs()
+    flags = exact_f32()
+    try:
+        state = training.create_train_state(flagship(), training.adam(1e-3))
+        step = training.make_train_step(dice_loss())
+        state, m = step(state, (x, y),
+                        torch.Generator(device='cuda').manual_seed(1))
+        ref = (float(m['loss']),
+               {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+               {n: p.detach().cpu() for n, p in
+                state.model.named_parameters()})
+        del state, step
+    finally:
+        restore_flags(flags)
+    peaks = {}
+    state = training.create_train_state(flagship(dtype=torch.bfloat16),
+                                        training.adam(1e-3))
+    step = training.make_train_step(dice_loss())
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    run = timed_steps(step, state, ((x, y), gen), n=6)
+    peaks['flagship'] = run[-1]
+    peaks['flagship_ms'] = 1e3 * statistics.median(run[2][WARMUP_STEPS:])
+    del state, step, x, y
+    torch.cuda.empty_cache()
+    x, y = config3_inputs(LC_VOL)
+    state = training.create_train_state(EncDecLC(LC_VOL, torch.bfloat16),
+                                        training.adam(1e-4))
+    step = training.make_train_step(mse)
+    run = timed_steps(step, state, ((x, y),), n=6)
+    peaks['config3'] = run[-1]
+    peaks['config3_ms'] = 1e3 * statistics.median(run[2][WARMUP_STEPS:])
+    del state, step, x, y
+    torch.cuda.empty_cache()
+    return ref, peaks
+
+
+def phase_space(checks, res, card):
+    print(f'== 30. whole-model spatial sharding on a space={SPACE_RANKS} mesh '
+          f'({card})', flush=True)
+    (ref_loss, ref_grads, ref_params), peaks = space_reference()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn_ranks(space_rank, SPACE_RANKS, 'gloo', d)
+        saved = [torch.load(os.path.join(d, f'rank{r}.pt'))
+                 for r in range(SPACE_RANKS)]
+    for r, (out, s) in enumerate(zip(ranks, saved)):
+        tag = f'space rank {r}/{SPACE_RANKS} ({out["backend"]})'
+        checks.check(f'{tag} flagship f32 loss vs the unsharded step',
+                     abs(out['f32_loss'] - ref_loss) <= 1e-5 * abs(ref_loss),
+                     f'rank {out["f32_loss"]!r} unsharded {ref_loss!r} (rtol '
+                     f'1e-5); z block {out["block"]}')
+        worst = max(float((s['grads'][n] - g).abs().max() / g.abs().max())
+                    for n, g in ref_grads.items())
+        checks.check(f'{tag} flagship f32 grads vs the unsharded step',
+                     worst <= 1e-4, f'{len(ref_grads)} tensors, worst '
+                     f'max|diff|/max|g| {worst:.3g} (limit 1e-4)')
+        diffs = [(s['params'][n] - p).abs() for n, p in ref_params.items()]
+        worst = max(float(d.max()) for d in diffs)
+        moved = sum(int((d > 1e-6).sum()) for d in diffs)
+        checks.check(f'{tag} flagship parameters vs the unsharded step',
+                     worst <= 2e-3 + 1e-6,
+                     f'max |diff| {worst:.3g} (limit 2 lr + 1e-6), {moved} '
+                     f'of {sum(d.numel() for d in diffs)} entries off by '
+                     f'more than 1e-6')
+        for part, per_step, path in (
+                ('a', {'pool2_fwd': 3, 'pool2_bwd': 3, 'dice_sums': 1},
+                 'flagship'),
+                ('b', {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1,
+                       'lc_fwd_row': 1, 'lc_dk': 1, 'lc_dk_row': 1,
+                       'lc_dx': 1, 'lc_dx_row': 1}, 'config #3')):
+            run = out[part]
+            checks.check(f'{tag} {path} bf16 losses finite',
+                         all(np.isfinite(run['losses'])),
+                         ' '.join(f'{v:.6f}' for v in run['losses']))
+            check_step_counts(checks, f'{tag} {path} bf16', run['counts'],
+                              per_step, TRAIN_STEPS)
+            checks.check(f'{tag} {path} bf16 K3 launches',
+                         run['counts'].get('dice_sums', 0)
+                         == per_step.get('dice_sums', 0) * TRAIN_STEPS,
+                         f'{run["counts"].get("dice_sums", 0)}')
+            check_vec_bodies(checks, f'{tag} {path} bf16', run['counts'])
+            checks.check(f'{tag} {path} gathers: the loss pair a step',
+                         run['gathered'] == {'loss': 2 * TRAIN_STEPS},
+                         f'{run["gathered"]}')
+            # the first conv's input needs no gradient: one exchange fewer
+            # backward
+            fwd = run['halo_convs'] + (part == 'b')
+            staged = run['staged']
+            checks.check(f'{tag} {path} host-staged halo exchanges',
+                         staged == {'halo': fwd * TRAIN_STEPS,
+                                    'halo_grad': (fwd - 1) * TRAIN_STEPS},
+                         f'{staged} ({fwd} forward and {fwd - 1} backward '
+                         f'a step; gloo moves CPU tensors only)')
+            ref = 'flagship' if part == 'a' else 'config3'
+            unsharded = peaks[ref]
+            print(f'  {tag} {path} bf16 step ms (median of steps '
+                  f'{WARMUP_STEPS + 1}-{TRAIN_STEPS}) {run["step_ms"]:.3f} a '
+                  f'rank, both ranks at once, halos through the host; all: '
+                  + ' '.join(f'{1e3 * t:.2f}' for t in run['times'])
+                  + f'; the unsharded step in one process '
+                  f'{peaks[ref + "_ms"]:.3f} ms (median of steps '
+                  f'{WARMUP_STEPS + 1}-6); peak memory {run["peak"]} B '
+                  f'({run["peak"] / 2 ** 30:.3f} GiB) a rank against '
+                  f'{unsharded} B ({unsharded / 2 ** 30:.3f} GiB) for the '
+                  f'unsharded step; {card}', flush=True)
+            if part == 'a':
+                print(f'  {tag} alone, both ranks at once: one loss gather '
+                      f'of [1, {VOL}^3, {NB_LABELS}] f32 '
+                      f'{run["gather_ms"]:.3f} ms (two a step), one halo '
+                      f'exchange of a [1, {VOL // SPACE_RANKS}, {VOL}^2, 16] '
+                      f'bf16 block {run["exchange_ms"]:.3f} ms (27 a step '
+                      f'at four levels)', flush=True)
+        first = out['b_first']
+        check_step_counts(checks, f'{tag} config #3 first step',
+                          first['counts'], {'pool2_fwd': 2, 'pool2_bwd': 2,
+                                            'lc_fwd': 1, 'lc_dk': 1,
+                                            'lc_dx': 1}, 1)
+        for name, ok, detail in out['checks']:
+            checks.check(name, ok, detail)
+    checks.check('space ranks\' flagship parameters bit-equal to one another',
+                 all(torch.equal(saved[0]['params'][n], s['params'][n])
+                     for s in saved[1:] for n in ref_params),
+                 f'{SPACE_RANKS} ranks')
+    for path, part in (('space', 'a'), ('space_lc', 'b')):
+        for name in PATH_RUNS[path][1]:
+            res[name]['paths'][path] = [
+                {'launches': out[part]['counts'].get(name, 0),
+                 'body_launches': {c: out[part]['counts'].get(c, 0)
+                                   for c in BODY_COUNTERS[name]}}
+                for out in ranks]
+
+
+# tests/test_examples.py's checks of each script's returned dict
+EXAMPLE_CHECKS = {
+    'train_unet_2d.py': lambda r: r['final_loss'] < -0.5,
+    'deformable_registration.py':
+        lambda r: r['mi_after'] > r['mi_before'] + 0.05,
+    'multichip_training.py': lambda r: math.isfinite(r['loss']),
+    'synthesis_pipeline.py': lambda r: math.isfinite(r['loss']),
+    'synthstrip_training.py': lambda r: math.isfinite(r['loss']),
+    'anatomical_priors_vae.py':
+        lambda r: math.isfinite(r['loss']) and len(r['recon_shape']) >= 2,
+}
+
+
+def phase_examples(checks):
+    import runpy
+    print('== 31. the examples_torch scripts on the card', flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'examples_torch')
+    for script, ok in EXAMPLE_CHECKS.items():
+        t0 = time.perf_counter()
+        result = runpy.run_path(os.path.join(root, script))['main']()
+        torch.cuda.synchronize()
+        checks.check(f'example {script}', ok(result),
+                     f'{result} in {time.perf_counter() - t0:.3f} s')
+
+
 def report_profile(label, fn, first, calls=PROFILE_STEPS):
     """Wall time, device busy time and idle share of `calls` calls
     fn(first), fn(first + 1), ..., and the device time by kernel; returns
@@ -3954,6 +4299,8 @@ def main(argv=None):
         '27': lambda: phase_feed(checks),
         '28': lambda: phase_dp(checks, res, card),
         '29': lambda: phase_halo(checks, res, card),
+        '30': lambda: phase_space(checks, res, card),
+        '31': lambda: phase_examples(checks),
     }
     for name, fn in phases.items():
         if name in run:
@@ -3989,7 +4336,9 @@ def main(argv=None):
           f'on the flagship trained from disk (phase 26), each rank\'s '
           f'K1-K3 on 10 data-parallel steps (phase 28, `dp`) and each '
           f'rank\'s K3, K4, K6 and K7-K9 on one run of the halo ops '
-          f'(phase 29, `halo`)')
+          f'(phase 29, `halo`), each rank\'s K1-K3 on 10 z-sharded flagship '
+          f'steps (phase 30, `space`) and K1-K3 and K7-K9 on 10 z-sharded '
+          f'config #3 steps (phase 30, `space_lc`)')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
     print(json.dumps({'kernels': [{k: v for k, v in r.items()
                                    if not k.startswith('_')}

@@ -30,6 +30,7 @@ from neurite_tpu_torch import backend
 from neurite_tpu_torch.models.unet import (_lecun_normal, _tuple,
                                            get_activation)
 from neurite_tpu_torch.ops import lc_cuda, lc_tap
+from neurite_tpu_torch.parallel import spatial as sharding
 from neurite_tpu_torch.utils import spatial
 
 __all__ = ['LocalBias', 'LocalLinear', 'LocalParamLayer',
@@ -288,9 +289,16 @@ class LocallyConnected(_Local):
     `impl` is 'auto' (a 3-D transposed layer on a CUDA tensor runs the
     kernels) or 'plain' (the plain PyTorch forms on every device: the twin
     that holds the kernels against their plain versions).
+
+    Under spatial sharding (`parallel.spatial`) a transposed 3-D SAME
+    stride-1 layer on a z block runs `parallel.sharded_lc` with the z block
+    of its kernel and bias (the parameters themselves when
+    `make_sharded_train_step`'s `param_specs` split them over 'space');
+    other forms gather.
     """
 
     rank = 3
+    spatial_rule = 'split'
 
     def __init__(self, filters, kernel_size, input_shape, rank=None,
                  strides=1, padding='valid', activation=None, use_bias=True,
@@ -344,6 +352,11 @@ class LocallyConnected(_Local):
         self._done()
 
     def forward(self, x):
+        if sharding.active() is not None:
+            return sharding.locally_connected(self, x)
+        return self._forward(x)
+
+    def _forward(self, x):
         nd = self.rank
         if tuple(x.shape[1:]) != self.input_shape:
             raise ValueError(f'expected input [B, *{self.input_shape}], got '

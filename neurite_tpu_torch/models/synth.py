@@ -35,6 +35,7 @@ from neurite_tpu_torch import backend, training
 from neurite_tpu_torch.layers.random import (GaussianBlur, GaussianNoise,
                                              Subsample)
 from neurite_tpu_torch.models.unet import UNet
+from neurite_tpu_torch.parallel import spatial as sharding
 from neurite_tpu_torch.utils import augment as aug
 from neurite_tpu_torch.utils import core, spatial
 
@@ -88,7 +89,14 @@ class LabelsToImage(nn.Module):
     card), so the JAX package's eligibility limits of its TPU engines do not
     apply. `warp_max_disp` keeps its meaning as the clip of the drawn field.
     `device` is where draws and outputs live (the card unless 'cpu').
+
+    Under spatial sharding (`parallel.spatial`) `forward` and `apply` take
+    this rank's block of the labels: it is gathered, the synthesis runs on
+    the whole volume with the given (or equal) draws on every rank, and
+    each volume output is the rank's block (the gather rule).
     """
+
+    spatial_rule = 'gather'
 
     def __init__(self, labels_in, labels_out=None, out_shape=None,
                  num_chan=1, aff_shift=0, aff_rotate=0, aff_scale=0,
@@ -282,6 +290,7 @@ class LabelsToImage(nn.Module):
                 for lv in draws['bias_levels']]))
         return d
 
+    @sharding.gathers
     def apply(self, labels, draws):
         """The synthesis of integer labels [B, *in_shape, 1] given `draws`
         with their Perlin fields (as `perlin(draw(...))` returns them)."""
@@ -405,6 +414,7 @@ class LabelsToImage(nn.Module):
 
         return {k: outputs[k] for k, w in self.returns if w}
 
+    @sharding.gathers
     def forward(self, labels, generator=None):
         return self.apply(labels, self.perlin(self.draw(labels.shape,
                                                         generator)))

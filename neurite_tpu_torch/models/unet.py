@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from neurite_tpu_torch import backend
 from neurite_tpu_torch.ops import max_pool
 from neurite_tpu_torch.ops.pool import _upsample  # keras UpSamplingND
+from neurite_tpu_torch.parallel import spatial as sharding
 from neurite_tpu_torch.utils import core
 
 # std of a standard normal truncated to [-2, 2]; flax's variance_scaling
@@ -88,7 +89,11 @@ class Conv(nn.Module):
     channels-last memory format, so the NDHWC input viewed as NCDHW
     (`x.movedim(-1, 1)`) goes through `F.conv{N}d` without a copy. With
     strides, SAME pads as XLA does (the high side takes the odd voxel).
+    Under spatial sharding (`parallel.spatial`) a stride-1 SAME conv with
+    an odd kernel on the sharded axis exchanges halos; other forms gather.
     """
+
+    spatial_rule = 'halo'
 
     def __init__(self, in_features, features, kernel_size, padding='same',
                  dilation=1, dtype=None, use_bias=True, generator=None,
@@ -125,6 +130,11 @@ class Conv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        if sharding.active() is not None:
+            return sharding.conv(self, x)
+        return self._forward(x)
+
+    def _forward(self, x):
         dt = self.dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dt)
         x = x.movedim(-1, 1).to(dt)
@@ -149,6 +159,8 @@ class PointwiseConv(nn.Module):
     of the JAX `PointwiseConv`). W is the flax kernel [1,..,1,C,F] reshaped
     to [C, F].
     """
+
+    spatial_rule = 'local'
 
     def __init__(self, in_features, features, ndims, dtype=None,
                  use_bias=True, generator=None):
@@ -179,9 +191,12 @@ class BatchNorm(nn.Module):
     float32 with the biased variance E[x^2] - E[x]^2, running averages
     updated as `momentum * avg + (1 - momentum) * stat` (flax momentum 0.99
     is torch's 0.01), epsilon 1e-5. Parameters `scale`, `bias`; buffers
-    `mean`, `var` (flax's `batch_stats`).
+    `mean`, `var` (flax's `batch_stats`). Under spatial sharding
+    (`parallel.spatial`) the batch moments are the whole volume's: the
+    blocks' summed over the 'space' group.
     """
 
+    spatial_rule = 'reduce'
     flax_same_layout = True
     flax_buffers = {'batch_stats': ('mean', 'var')}
 
@@ -214,8 +229,10 @@ class BatchNorm(nn.Module):
         shape[axis] = -1
         if training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(red)
-            var = torch.clamp((xf * xf).mean(red) - mean * mean, min=0.)
+            mean, sq = xf.mean(red), (xf * xf).mean(red)
+            if sharding.active() is not None:
+                mean, sq = sharding.batch_moments(mean, sq, axis)
+            var = torch.clamp(sq - mean * mean, min=0.)
         if training and update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -299,6 +316,8 @@ class ConvEnc(nn.Module):
     output before pooling. `in_channels` and `ndims` stand for the input
     shape flax infers at the first call.
     """
+
+    spatial_rule = 'local'
 
     def __init__(self, in_channels, ndims, nb_features, nb_levels, conv_size,
                  feat_mult=1, pool_size=2, padding='same', dilation_rate_mult=1,
@@ -387,6 +406,8 @@ class ConvDec(nn.Module):
     With skip connections, `skip_channels[level]` is the channel count of the
     encoder's skip at that level.
     """
+
+    spatial_rule = 'local'
 
     def __init__(self, in_channels, ndims, nb_features, nb_levels, conv_size,
                  nb_labels, feat_mult=1, pool_size=2,
@@ -480,6 +501,8 @@ class AddPrior(nn.Module):
     (reference `models.py:378-435`).
     """
 
+    spatial_rule = 'local'
+
     def __init__(self, use_logp=True, final_pred_activation='softmax'):
         super().__init__()
         if final_pred_activation == 'softmax' and not use_logp:
@@ -531,6 +554,8 @@ class UNet(nn.Module):
     encoder and the decoder in the backward pass (see the module's
     docstring).
     """
+
+    spatial_rule = 'local'
 
     def __init__(self, in_channels, ndims, nb_features, nb_levels, conv_size,
                  nb_labels, feat_mult=1, pool_size=2, use_logp=True,

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from neurite_tpu_torch.parallel import spatial as sharding
+
 
 def _windowed(x, window):
     """[B, *spatial, C] -> [B, s0/w0, w0, s1/w1, w1, ..., C]."""
@@ -131,6 +133,10 @@ def max_pool(x, window, strides=None, padding='VALID', impl='auto'):
 
     impl: 'auto' (the kernel where it applies), 'kernel' (the same, but raise
         for a CUDA tensor the kernel does not take), or 'plain'.
+
+    Under spatial sharding (`parallel.spatial`) x is a block, and the pool
+    runs on it as it is: the windows must tile the block along the sharded
+    axis (window = stride, dividing the block), or this raises.
     """
     if impl not in ('auto', 'kernel', 'plain'):
         raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
@@ -140,6 +146,8 @@ def max_pool(x, window, strides=None, padding='VALID', impl='auto'):
     if len(spatial) != len(window) or len(strides) != len(window):
         raise ValueError(f'window {window} / strides {strides} do not match '
                          f'the {len(spatial)} spatial dims of {tuple(x.shape)}')
+    if sharding.active() is not None:
+        sharding.check_pool(x.shape, window, strides)
     if strides == window and all(s % w == 0 for s, w in zip(spatial, window)):
         if impl != 'plain' and x.is_cuda:
             from neurite_tpu_torch.ops import pool_cuda

@@ -1,6 +1,7 @@
 """
-parallel — the mesh, data parallelism and explicit spatial sharding on
-torch.distributed (counterpart of `neurite_tpu.parallel`).
+parallel — the mesh, data parallelism, whole-model spatial sharding
+(`spatial`, through `make_sharded_train_step`) and the explicit halo ops
+on torch.distributed (counterpart of `neurite_tpu.parallel`).
 """
 from neurite_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS, SPACE_AXIS, create_mesh, batch_sharding, replicated,

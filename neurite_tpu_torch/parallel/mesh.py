@@ -19,7 +19,9 @@ semantics and changes the mechanism:
   `torch.distributed.tensor` placements, one per mesh dim.
 - `make_sharded_train_step` averages the gradients and the metrics over
   the 'data' group (all-reduce, then divide by its size) around a port
-  step, as DDP does.
+  step, as DDP does; on a 'space' dim above 1 it also partitions the
+  whole model along the batch's sharded axis (`parallel.spatial`), as
+  GSPMD partitions a JAX step.
 
 Gloo moves CPU tensors only in its point-to-point calls, so a send of a
 CUDA tensor over a gloo group goes through host memory, decided from the
@@ -345,72 +347,111 @@ def state_shardings_for(state, mesh, param_specs=None):
     return out
 
 
+def _split_params(shardings, mesh):
+    """The tensors that `shardings` split over a mesh dim larger than 1:
+    {name: (the tensor dim split over 'space' or None, split over 'data')}."""
+    from torch.distributed.tensor import Shard
+    out = {}
+    for name, pl in shardings.items():
+        dims = {mesh.mesh_dim_names[i]: p.dim for i, p in enumerate(pl)
+                if isinstance(p, Shard) and mesh.size(i) > 1}
+        if dims:
+            out[name] = (dims.get(SPACE_AXIS), DATA_AXIS in dims)
+    return out
+
+
 def make_sharded_train_step(train_step, mesh, space_axis=1,
                             donate_state=True, param_specs=None):
     """
-    Data parallelism around a port train step (`training.make_train_step`):
-    run(state, local_batch, generator) runs the wrapped step on this rank's
-    batch (`shard_batch`), averages every gradient over the 'data' group
-    (one all-reduce a dtype, then a division by the group's size) before
-    the optimizer steps, and returns the state and the metrics averaged
-    over the same group. The result equals the step on the global batch
-    when the loss is a mean over the batch and the ranks hold equal shares
-    (SoftDice is one: its mean runs over [B, L]); BatchNorm statistics and
-    dropout masks stay per rank, as under DDP.
+    A port train step (`training.make_train_step`) over the mesh: run(state,
+    local_batch, generator) runs the wrapped step on this rank's block of
+    the batch (`shard_batch`: axis 0 over 'data', axis `space_axis` over
+    'space'), reduces the gradients before the optimizer steps, and returns
+    the state and the metrics averaged over the 'data' group.
+
+    On a 'space' dim of 1 (or with `space_axis=None`) this is data
+    parallelism: every gradient averaged over 'data' (one all-reduce a
+    dtype, then a division by the group's size). The result equals the
+    step on the global batch when the loss is a mean over the batch and the
+    ranks hold equal shares (SoftDice is one: its mean runs over [B, L]);
+    BatchNorm statistics and dropout masks stay per 'data' rank, as under
+    DDP.
+
+    On a 'space' dim above 1 the whole model is partitioned along axis
+    `space_axis` of the batch, as GSPMD partitions a JAX step: the step
+    runs under `parallel.spatial.sharded(mesh, space_axis)`, where each
+    module type follows its rule (the convs exchange halos, BatchNorm sums
+    its moments over 'space', LocallyConnected runs `sharded_lc`,
+    `LabelsToImage` gathers, the loss sees whole tensors; see
+    `parallel.spatial`). A replicated parameter's gradient is summed over
+    'space' (each rank holds its block's share), then averaged over
+    'data'; a parameter that `param_specs` splits over 'space' keeps its
+    block on the rank and is averaged over 'data' only. A model with a
+    module type that has no rule raises NotImplementedError, naming it.
 
     The machinery is built once, at the first call with a state: the
-    parameters and buffers are broadcast from the group's first rank (JAX
-    commits the state to the mesh, replicated) and a step pre-hook that
-    averages the gradients is registered on its optimizer; later calls
-    reuse both (JAX's trace cache). The hook acts only inside `run`.
+    module check, the parameters and buffers broadcast from the mesh's
+    first rank (JAX commits the state to the mesh, replicated), the rank's
+    block of each split parameter put in place of the whole before the
+    optimizer's first step (so Adam's moments take the block's shape, as
+    JAX's shard by the same spec), and a step pre-hook on the optimizer
+    that reduces the gradients; later calls reuse them (JAX's trace
+    cache). The hook acts only inside `run`.
 
-    `param_specs` (see `state_shardings_for`) may only keep the parameters
-    replicated over mesh dims larger than 1: a parameter split over ranks
-    is the explicit route of `parallel.halo` (`sharded_lc`).
-    `donate_state` has no effect: the port's step updates the state in
-    place, so there is no copy to donate. `space_axis` has none either,
-    since the 'space' dim must be 1.
-
-    A 'space' dim larger than 1 raises NotImplementedError: that is GSPMD's
-    whole-model spatial partitioning, which torch has no counterpart of
-    (DTensor's conv halo shards W only). The port's spatial route is the
-    explicit halo ops of `parallel.halo` (ROADMAP Queue 1 item 9c).
+    `param_specs` (see `state_shardings_for`) may split only a transposed
+    3-D LocallyConnected layer's kernel (its voxel axis) and bias (z) over
+    'space', JAX's `P(None, None, 'space')` and `P('space')`; any other
+    split raises NotImplementedError. `donate_state` has no effect: the
+    port's step updates the state in place, so there is no copy to donate.
     """
-    from torch.distributed.tensor import Shard
-    del donate_state, space_axis
-    if mesh.size(1) > 1:
-        raise NotImplementedError(
-            f"make_sharded_train_step: a 'space' mesh axis of "
-            f"{mesh.size(1)} needs GSPMD's whole-model spatial "
-            f"partitioning, which torch has no counterpart of; shard the "
-            f"volume explicitly with parallel.halo's ops (sharded_conv, "
-            f"sharded_lc, ...) or use a 'data' mesh (ROADMAP Queue 1 item 9c)")
-    data = _axis(mesh, DATA_AXIS)
-    hooked = weakref.WeakKeyDictionary()   # optimizer -> its hook's handle
+    from neurite_tpu_torch.parallel import spatial
+    del donate_state
+    data, space = _axis(mesh, DATA_AXIS), _axis(mesh, SPACE_AXIS)
+    sharded = space.size > 1 and space_axis is not None
+    built = weakref.WeakKeyDictionary()   # optimizer -> (hook, split ids)
     inside = [False]
 
-    def average(optimizer, args, kwargs):
-        if inside[0]:
-            _mean_grads([p for g in optimizer.param_groups
-                         for p in g['params']], data)
+    def reduce_grads(optimizer, args, kwargs):
+        if not inside[0]:
+            return
+        split = built[optimizer][1]
+        params = [p for g in optimizer.param_groups for p in g['params']
+                  if p.grad is not None]
+        if sharded:
+            _flat_([p.grad for p in params if id(p) not in split],
+                   lambda flat: _all_reduce_(flat, space))
+        _mean_grads(params, data)
+
+    def build(state):
+        shardings = state_shardings_for(state, mesh, param_specs)
+        split = _split_params(shardings, mesh)
+        if split and not sharded:
+            raise NotImplementedError(
+                f'make_sharded_train_step: param_specs split {sorted(split)} '
+                f'over ranks, which takes a \'space\' mesh dim above 1 and '
+                f'a space_axis (a parameter split over \'data\' has no rule)')
+        if sharded:
+            spatial.check(state.model, split)
+        _broadcast_state(state.model, space)
+        _broadcast_state(state.model, data)
+        params = dict(state.model.named_parameters())
+        for name in split:
+            p = params[name]
+            p.data = _local(p.data, mesh, shardings[name]).clone()
+        ids = {id(params[name]) for name in split}
+        built[state.optimizer] = (
+            state.optimizer.register_step_pre_hook(reduce_grads), ids)
 
     def run(state, batch, generator=None):
-        opt = state.optimizer
-        if opt not in hooked:
-            shardings = state_shardings_for(state, mesh, param_specs)
-            split = [n for n, pl in shardings.items()
-                     if any(isinstance(p, Shard) and mesh.size(i) > 1
-                            for i, p in enumerate(pl))]
-            if split:
-                raise NotImplementedError(
-                    f'make_sharded_train_step keeps parameters replicated; '
-                    f'param_specs split {split} over ranks (use '
-                    f'parallel.sharded_lc for a z-sharded LC head)')
-            _broadcast_state(state.model, data)
-            hooked[opt] = opt.register_step_pre_hook(average)
+        if state.optimizer not in built:
+            build(state)
         inside[0] = True
         try:
-            state, metrics = train_step(state, batch, generator)
+            if sharded:
+                with spatial.sharded(mesh, space_axis):
+                    state, metrics = train_step(state, batch, generator)
+            else:
+                state, metrics = train_step(state, batch, generator)
         finally:
             inside[0] = False
         return state, _mean_metrics(metrics, data)

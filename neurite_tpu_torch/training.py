@@ -64,15 +64,24 @@ def make_train_step(loss_fn, has_aux_vars=False, rng_names=('dropout',),
     `parallel.create_mesh`), each rank runs the step on its own batch, and
     the gradients and the loss are averaged over that dim's group before
     the optimizer steps (JAX's `lax.pmean`; `training.py:85-87` there).
+
+    Under spatial sharding (`parallel.make_sharded_train_step` on a
+    'space' dim above 1) x and y are this rank's blocks; y_true and y_pred
+    are gathered whole before `loss_fn` (`parallel.spatial`), so any loss
+    sees the whole volume, as it does in JAX's GSPMD step.
     """
     del has_aux_vars, rng_names
+    from neurite_tpu_torch.parallel import spatial as sharding
 
     def step(state, batch, generator=None):
         x, y = _split(batch)
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(y, model(x, training=True, generator=generator))
+        pred = model(x, training=True, generator=generator)
+        if sharding.active() is not None:
+            y, pred = sharding.gather_loss_inputs(y, pred)
+        loss = loss_fn(y, pred)
         loss.backward()
         if axis_name is not None:
             from neurite_tpu_torch.parallel import mesh

@@ -169,10 +169,20 @@ def interpn(vol, loc, interp_method='linear', fill_value=None, impl='auto',
     `max_disp`, `block` and `guard` pick among the JAX package's TPU engines
     and have no effect here: every engine computes this one exact function.
 
+    Under spatial sharding (`parallel.spatial`) vol is this rank's block
+    along the sharded axis and loc this rank's points in the whole volume's
+    coordinates: vol is gathered (the gather rule), and the result is at
+    this rank's points.
+
     Parity: reference `neurite/tf/utils/utils.py:73-220`, JAX
     `utils/core.py:70-192`.
     """
     del impl, max_disp, block, guard
+    from neurite_tpu_torch.parallel import spatial as sharding
+    if sharding.active() is not None:
+        return sharding.gather_call(
+            'interpn', lambda v: interpn(v, loc, interp_method, fill_value),
+            vol, blocks=False)
     if isinstance(loc, (list, tuple)):
         loc = torch.stack(list(loc), -1)
     nb_dims = loc.shape[-1]
@@ -273,7 +283,15 @@ def resize(vol, zoom_factor, interp_method='linear', new_shape=None):
     Parity: reference `neurite/tf/utils/utils.py:223-264`; the resize is
     axis-separable, so it runs as per-axis two-take passes
     (`ops.resize.resize_separable`), identical to `interpn` on the zoom grid.
+    Under spatial sharding (`parallel.spatial`) vol is this rank's block
+    along the sharded axis: it is gathered (the gather rule), and the
+    result is the rank's block of the resized volume.
     """
+    from neurite_tpu_torch.parallel import spatial as sharding
+    if sharding.active() is not None:
+        return sharding.gather_call(
+            'resize', lambda v: resize(v, zoom_factor, interp_method,
+                                       new_shape), vol)
     if isinstance(zoom_factor, (list, tuple)):
         ndims = len(zoom_factor)
         vol_shape = vol.shape[:ndims]

@@ -56,5 +56,29 @@ def test_port_imports_without_jax_flax_optax_orbax_or_matplotlib():
               'neurite_tpu_torch.data', 'neurite_tpu_torch.py.data',
               'neurite_tpu_torch.ops.conv', 'neurite_tpu_torch.parallel',
               'neurite_tpu_torch.parallel.mesh',
-              'neurite_tpu_torch.parallel.halo'):
+              'neurite_tpu_torch.parallel.halo',
+              'neurite_tpu_torch.parallel.spatial'):
         assert m in want
+
+
+EXAMPLES_SCRIPT = f"""
+import glob, runpy, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+names = sorted(glob.glob('examples_torch/*.py'))
+for f in names:
+    runpy.run_path(f)                 # its imports; main() does not run
+print(' '.join(names))
+"""
+
+
+def test_examples_import_without_jax():
+    """The six `examples_torch` scripts import with the same modules
+    blocked (each imports the port only)."""
+    out = subprocess.run([sys.executable, '-c', EXAMPLES_SCRIPT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    names = out.stdout.split()
+    assert len(names) == 6 and all(n.startswith('examples_torch/')
+                                   for n in names)

@@ -360,13 +360,6 @@ def test_lc_head_z_sharded_weights_step(ranks):
                                    atol=2e-6)
 
 
-def test_space_axis_raises_not_implemented(ranks):
-    """GSPMD's whole-model spatial sharding has no torch counterpart: a
-    'space' dim of 2 raises, naming the halo route and ROADMAP item 9c."""
-    msg = str(_case(ranks, 'space_raises')['message'])
-    assert 'space' in msg and 'parallel.halo' in msg and '9c' in msg
-
-
 def test_model_checkpoint_parallel_writes_on_rank_0_only(ranks):
     for r in range(WORLD):
         assert list(_case(ranks, 'checkpoint', r)['written']) == \

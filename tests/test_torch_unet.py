@@ -129,10 +129,69 @@ def test_unet_bf16_compute_close_to_flax():
     yt = tm(torch.from_numpy(x), training=False)
     assert yt.dtype == torch.bfloat16 and yj.dtype == jnp.bfloat16
     assert all(p.dtype == torch.float32 for p in tm.parameters())
-    # bf16 keeps 8 significant bits and the two frameworks round at other
-    # places; 2e-2 on softmax outputs in [0, 1] still catches a wrong layer
+    # each layer rounds to bf16 once in both (test_bf16_conv_...); the
+    # softmax outputs in [0, 1] differ by at most one bf16 step of their
+    # top binade [0.5, 1), 2^-8, measured so on both JAX conv routes
     np.testing.assert_allclose(yt.float().detach().numpy(),
-                               np.asarray(yj, np.float32), atol=2e-2)
+                               np.asarray(yj, np.float32), rtol=0,
+                               atol=2 ** -8)
+
+
+def _bf16_ulp(y):
+    """The spacing of bf16 numbers (8 significant bits) at |y|."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(y), 2 ** -126))) - 7)
+
+
+def _bf16_conv_runs(conv_impl):
+    """One 3x3x3, 16 -> 16 SAME conv at 16^3 on bf16 inputs, with the
+    layer's initial (zero) bias, so each result is one sum: the port's
+    (`F.conv3d`), JAX's `conv_impl` route, and the float32 sum of the same
+    bf16-rounded inputs and weights."""
+    from neurite_tpu.models.unet import _conv_layer
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 16, 16, 16, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    conv = Conv(16, 16, (3, 3, 3), dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(0))
+    kernel = conv.weight.detach().permute(2, 3, 4, 1, 0).numpy()
+    bias = conv.bias.detach().numpy()
+    yt = conv(x).float().detach().numpy()
+    jc = _conv_layer(conv_impl, 16, dict(kernel_size=(3, 3, 3),
+                                         padding='SAME'),
+                     jnp.float32, jnp.bfloat16, 'conv')
+    yj = np.asarray(jax.jit(jc.apply)(
+        {'params': {'kernel': jnp.asarray(kernel), 'bias': jnp.asarray(bias)}},
+        jnp.asarray(x.float().numpy(), jnp.bfloat16)), np.float32)
+    w = conv.weight.detach().to(torch.bfloat16).float()
+    yf = torch.nn.functional.conv3d(
+        x.float().movedim(-1, 1), w, conv.bias.detach().to(
+            torch.bfloat16).float(), padding=1).movedim(1, -1).numpy()
+    return yt, yj, yf
+
+
+def test_bf16_conv_within_one_rounding_of_native():
+    """One bf16 conv layer against JAX's `nn.Conv` route
+    (conv_impl='native'): both sum in float32 and round once, so they
+    differ by at most one bf16 step of the result, and the port's result
+    is the float32 sum rounded (within 0.51 of a step: the sums' own
+    order adds less than 2^-8 of a step)."""
+    yt, yn, yf = _bf16_conv_runs('native')
+    ulp = _bf16_ulp(yf)
+    assert np.all(np.abs(yt - yn) <= ulp)
+    assert np.max(np.abs(yt - yf) / ulp) <= 0.51
+    assert np.max(np.abs(yn - yf) / ulp) <= 0.51 + 2 ** -4
+
+
+def test_bf16_z2d_rounds_each_tap():
+    """A divergence of the reference, pinned: JAX's z-decomposed conv
+    (`conv_impl='auto'`/'z2d') rounds each z tap's 2-D partial sum to bf16
+    before it adds (`neurite_tpu/ops/zdecomp.py:78-84`), so it lands more
+    than one bf16 step from the float32 sum where the port (and
+    `nn.Conv`) round once."""
+    yt, yz, yf = _bf16_conv_runs('z2d')
+    ulp = _bf16_ulp(yf)
+    assert np.max(np.abs(yt - yf) / ulp) <= 0.51
+    assert np.max(np.abs(yz - yf) / ulp) > 1
 
 
 def test_load_flax_params_round_trips_and_checks_names():

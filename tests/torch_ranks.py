@@ -1,6 +1,7 @@
 """
 Gloo ranks on the CPU for the port's distributed tests
-(`tests/test_torch_parallel.py`, `tests/test_torch_halo.py`).
+(`tests/test_torch_parallel.py`, `tests/test_torch_halo.py`,
+`tests/test_torch_spatial.py`).
 
 `launch(suite, world, inputs, workdir)` writes the numpy `inputs` to
 `workdir`, starts `world` processes of this file, each a gloo rank of one
@@ -24,7 +25,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SUITES = {'parallel': [], 'halo': []}
+SUITES = {'parallel': [], 'halo': [], 'spatial': []}
 
 # the synthesis knobs of tests/test_torch_synth.py's parity tests: the
 # stages whose draws the JAX model does not return are off
@@ -343,18 +344,6 @@ def _world():
 
 
 @case('parallel')
-def space_raises(inp):
-    """make_sharded_train_step with a 'space' dim of 2."""
-    import neurite_tpu_torch as nt
-    mesh = nt.parallel.create_mesh(data=2, space=2, device='cpu')
-    try:
-        nt.parallel.make_sharded_train_step(_dice_step(nt), mesh)
-    except NotImplementedError as e:
-        return {'message': str(e)}
-    return {'message': ''}
-
-
-@case('parallel')
 def checkpoint(inp):
     """ModelCheckpointParallel in a group of 4: each rank is given its own
     directory (under the working directory, the launch's); only rank 0
@@ -511,6 +500,254 @@ def lc(inp):
         out.update({f'{impl}/y': _np(y), f'{impl}/dx': _np(x.grad),
                     f'{impl}/dk': _np(k.grad)})
     return out
+
+
+###############################################################################
+# the 'spatial' suite (4 ranks): make_sharded_train_step on 'space' meshes
+###############################################################################
+
+def _counters():
+    from neurite_tpu_torch.parallel import mesh as pmesh, spatial
+    spatial.gathered.clear()
+    pmesh.host_staged.clear()
+
+
+def _read_counters():
+    from neurite_tpu_torch.parallel import mesh as pmesh, spatial
+    return {f'gathered/{k}': v for k, v in spatial.gathered.items()} | \
+        {f'staged/{k}': v for k, v in pmesh.host_staged.items()}
+
+
+def _spatial_dp(inp, data, space, steps, axis=1):
+    """JAX's `test_dp_plus_spatial_matches` step on a data x space mesh,
+    `steps` calls of one wrapper, spatial axis `axis` split."""
+    import torch
+    import neurite_tpu_torch as nt
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=data, space=space, device='cpu')
+    calls = []
+    base = _dice_step(nt)
+
+    def counting(state, batch, generator=None):
+        calls.append(1)
+        return base(state, batch, generator)
+
+    state = nt.training.create_train_state(_dp_unet(torch, nt), _sgd(torch))
+    run = parallel.make_sharded_train_step(counting, mesh, space_axis=axis,
+                                           donate_state=False)
+    batch = parallel.shard_batch((inp['dp_x'], inp['dp_y']), mesh,
+                                 space_axis=axis)
+    _counters()
+    out, losses = {}, []
+    for i in range(steps):
+        state, m = run(state, batch, torch.Generator().manual_seed(i))
+        losses.append(float(m['loss']))
+        if i == 0:
+            out.update({f'params/{k}': v
+                        for k, v in _state_dict(state.model).items()})
+    out.update(_read_counters())
+    out['losses'] = np.asarray(losses)
+    out['calls'] = len(calls)
+    out['hooks'] = len(state.optimizer._optimizer_step_pre_hooks)
+    out['block'] = np.asarray(batch[0].shape)
+    return out
+
+
+@case('spatial')
+def dp2x2(inp):
+    """The 2 x 2 mesh, 3 calls of one wrapper (built once)."""
+    return _spatial_dp(inp, 2, 2, 3)
+
+
+@case('spatial')
+def dp1x4(inp):
+    """The 1 x 4 mesh: 4-row z blocks through a 2-level UNet."""
+    return _spatial_dp(inp, 1, 4, 1)
+
+
+@case('spatial')
+def dp1x4y(inp):
+    """The 1 x 4 mesh with the second spatial axis (y) split."""
+    return _spatial_dp(inp, 1, 4, 1, axis=2)
+
+
+@case('spatial')
+def bn_dropout(inp):
+    """A 16^3 UNet with BatchNorm and dropout on a 1 x 4 mesh: the whole
+    volume's batch statistics, and the dropout masks of equal generators."""
+    import torch
+    import neurite_tpu_torch as nt
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=1, space=4, device='cpu')
+    state = nt.training.create_train_state(_bn_unet(torch, nt), _sgd(torch))
+    run = parallel.make_sharded_train_step(_dice_step(nt), mesh)
+    batch = parallel.shard_batch((inp['dp_x'][:2], inp['dp_y'][:2]), mesh)
+    _, m = run(state, batch, torch.Generator().manual_seed(5))
+    return {'loss': float(m['loss']),
+            **{f'state/{k}': v for k, v in _state_dict(state.model).items()}}
+
+
+def _bn_unet(torch, nt):
+    return nt.models.unet(nb_features=4, input_shape=(16, 16, 16, 1),
+                          nb_levels=2, conv_size=3, nb_labels=2,
+                          nb_conv_per_level=2, batch_norm=-1,
+                          conv_dropout=0.25, device='cpu',
+                          generator=torch.Generator().manual_seed(0))
+
+
+@case('spatial')
+def config5(inp):
+    """Config #5's step at 8^3 on a 2 x 2 mesh: the synthesis inside the
+    sharded step, given JAX's draws for this 'data' rank's items, gathers
+    the labels' z blocks (`LabelsToImage.apply`'s gather rule), then the
+    UNet runs on the z blocks."""
+    import torch
+    import neurite_tpu_torch as nt
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=2, space=2, device='cpu')
+    labels = inp['c5_labels']
+    bs = labels.shape[0]
+    gen = nt.models.labels_to_image_new(labels_in=range(4), out_shape=(8,) * 3,
+                                        one_hot=True, device='cpu',
+                                        **SYNTH_KW)
+    draws = gen.perlin(gen.draw(labels.shape,
+                                torch.Generator().manual_seed(0)))
+    for k in ('aff', 'vel', 'mean', 'bias'):
+        draws[k] = torch.from_numpy(inp[f'c5_{k}'])
+    i = mesh.get_coordinate()[0]
+    per = bs // mesh.size(0)
+    mine = {k: v[i * per:(i + 1) * per] if torch.is_tensor(v) and v.ndim
+            and v.shape[0] == bs else v for k, v in draws.items()}
+    model = nt.models.unet(nb_features=2, input_shape=(8, 8, 8, 1),
+                           nb_levels=2, conv_size=3, nb_labels=4,
+                           device='cpu',
+                           generator=torch.Generator().manual_seed(0))
+    state = nt.training.create_train_state(model, nt.training.adam(1e-3))
+    base = _dice_step(nt)
+
+    def synth_step(st, lab, generator=None):
+        out = gen.apply(lab, mine)
+        return base(st, (out['image'], out['map']), generator)
+
+    run = parallel.make_sharded_train_step(synth_step, mesh)
+    _counters()
+    _, m = run(state, parallel.shard_batch(labels, mesh),
+               torch.Generator().manual_seed(2))
+    return {'loss': float(m['loss']), **_read_counters()}
+
+
+def _lc_head_model(torch, nt, kernel, bias):
+    """JAX's `test_lc_head_tensor_parallel_weights` model with JAX's
+    initial weights: one LocallyConnected3D named 'lc_head' in a container
+    that declares the 'local' rule (it computes nothing itself)."""
+    class LCHead(torch.nn.Module):
+        spatial_rule = 'local'
+
+        def __init__(self):
+            super().__init__()
+            self.lc_head = nt.layers.LocallyConnected3D(
+                filters=1, kernel_size=3, padding='same',
+                input_shape=(8, 8, 8, 2), device='cpu')
+            nt.convert.load_flax_params(
+                self, {'lc_head': {'kernel': kernel, 'bias': bias}})
+
+        def forward(self, x, training=None, generator=None):
+            return self.lc_head(x)
+
+    return LCHead()
+
+
+@case('spatial')
+def lc_head(inp):
+    """`test_lc_head_tensor_parallel_weights` through
+    make_sharded_train_step on a 2 x 2 mesh with JAX's param_specs: the
+    kernel's and bias' z blocks on each rank, Adam's moments of the
+    blocks' shapes."""
+    import torch
+    import neurite_tpu_torch as nt
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=2, space=2, device='cpu')
+    model = _lc_head_model(torch, nt, inp['lc_kernel'], inp['lc_bias'])
+    state = nt.training.create_train_state(
+        model, lambda p: torch.optim.Adam(p, lr=LC_HEAD_LR, eps=1e-8))
+    step = nt.training.make_train_step(lambda t, p: ((p - t) ** 2).mean())
+    specs = {"['kernel']": (None, None, 'space'), "['bias']": ('space',)}
+    run = parallel.make_sharded_train_step(step, mesh, space_axis=1,
+                                           donate_state=False,
+                                           param_specs=specs)
+    _, m = run(state, parallel.shard_batch((inp['lc_x'], inp['lc_y']), mesh,
+                                           space_axis=1),
+               torch.Generator().manual_seed(1))
+    out = {'loss': float(m['loss'])}
+    for name in ('kernel', 'bias'):
+        p = getattr(model.lc_head, name)
+        out[name] = _np(p)
+        out[f'{name}_moments'] = np.asarray(
+            [state.optimizer.state[p][n].shape
+             for n in ('exp_avg', 'exp_avg_sq')])
+    return out
+
+
+@case('spatial')
+def resize(inp):
+    """`test_spatially_sharded_interpn`: resize of a [32, 16, 2] volume by
+    2 on a 1 x 4 mesh, axis 0 split, under `spatial.sharded`."""
+    from neurite_tpu_torch import parallel, utils
+    from neurite_tpu_torch.parallel import spatial
+    mesh = _space(4)
+    _counters()
+    with spatial.sharded(mesh, 0):
+        got = utils.resize(_t(_block(inp['rs_vol'], mesh, 0)), [2, 2])
+    return {'y': _np(got), **_read_counters()}
+
+
+@case('spatial')
+def raises(inp):
+    """A model with a module type of no rule, and a param_specs split no
+    rule holds, each raising NotImplementedError when the step is built."""
+    import torch
+    import neurite_tpu_torch as nt
+    from neurite_tpu_torch import parallel
+    mesh = parallel.create_mesh(data=2, space=2, device='cpu')
+    unet = _dp_unet(torch, nt)
+
+    class WithLocalBias(torch.nn.Module):
+        spatial_rule = 'local'
+
+        def __init__(self):
+            super().__init__()
+            self.unet = unet
+            self.bias = nt.layers.LocalBias(input_shape=(16, 16, 16, 2),
+                                            device='cpu')
+
+        def forward(self, x, training=None, generator=None):
+            return self.bias(self.unet(x, training, generator))
+
+    out = {}
+    batch = parallel.shard_batch((inp['dp_x'], inp['dp_y']), mesh)
+    for name, model, specs in (
+            ('unruled', WithLocalBias(), None),
+            ('split_conv', unet, {'conv_downarm_0_0.weight':
+                                  (None, None, 'space')})):
+        state = nt.training.create_train_state(model, _sgd(torch))
+        run = parallel.make_sharded_train_step(_dice_step(nt), mesh,
+                                               param_specs=specs)
+        try:
+            run(state, batch, torch.Generator().manual_seed(0))
+            out[name] = ''
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+@case('spatial')
+def multichip(inp):
+    """`examples_torch/multichip_training.py` in this group of 4: a 2 x 2
+    mesh, batch 2."""
+    import runpy
+    mod = runpy.run_path(os.path.join(REPO, 'examples_torch',
+                                      'multichip_training.py'))
+    return mod['main']('cpu')
 
 
 def main(suite, world, rank, port, workdir):
