@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from neurite_tpu_torch import backend, training
+from neurite_tpu_torch import backend, trace, training
 from neurite_tpu_torch.layers.random import (GaussianBlur, GaussianNoise,
                                              Subsample)
 from neurite_tpu_torch.models.unet import UNet
@@ -704,8 +704,12 @@ class LabelsToImageV1(nn.Module):
         return outputs
 
     def forward(self, labels, generator=None):
-        return self.apply(labels, self.perlin(
-            self.draw(labels.shape, generator), labels.shape))
+        with trace.span('synth/draw'):
+            draws = self.draw(labels.shape, generator)
+        with trace.span('synth/perlin'):
+            draws = self.perlin(draws, labels.shape)
+        with trace.span('synth/apply'):
+            return self.apply(labels, draws)
 
 
 class SynthStripModule(nn.Module):
@@ -719,7 +723,9 @@ class SynthStripModule(nn.Module):
     `training.fit` makes them) or takes `draws` (raw, as
     `gen.draw` returns them). `ndims` stands for the label map's rank,
     which flax infers; impl='plain' runs the plain versions of K1, K2, K4
-    and K6 on any device.
+    and K6 on any device. While a profiler records, the synthesis opens
+    the spans 'neurite/synth/draw' (only when it draws), 'synth/perlin'
+    and 'synth/apply' (`trace.span`), as `LabelsToImageV1.forward` does.
 
     Parity: reference `neurite/tf/models.py:1888-1965`.
     """
@@ -749,9 +755,13 @@ class SynthStripModule(nn.Module):
 
     def forward(self, labels, training=None, generator=None, draws=None):
         if draws is None:
-            draws = self.gen.draw(labels.shape, generator)
+            with trace.span('synth/draw'):
+                draws = self.gen.draw(labels.shape, generator)
         with torch.no_grad():
-            out = self.gen.apply(labels, self.gen.perlin(draws, labels.shape))
+            with trace.span('synth/perlin'):
+                draws = self.gen.perlin(draws, labels.shape)
+            with trace.span('synth/apply'):
+                out = self.gen.apply(labels, draws)
         pred = self.unet(out['image'], training=training, generator=generator)
         return torch.cat([pred, out['map'].to(torch.float32)], dim=-1)
 

@@ -28,6 +28,11 @@ bottleneck. The recomputation draws the dropout masks of the forward pass
 again (from a copy of the generator's state before it, leaving the
 generator where the forward pass left it) and does not update the
 BatchNorm running statistics a second time.
+
+While a profiler records, the glue around the convs runs in spans
+(`trace.span`): each `Conv`'s casts of its input, weight and bias in
+'neurite/unet/cast', and each decoder level's upsampling and skip
+concatenation in 'unet/upsample' and 'unet/concat' (args: the level).
 """
 
 import math
@@ -38,7 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from neurite_tpu_torch import backend
+from neurite_tpu_torch import backend, trace
 from neurite_tpu_torch.ops import max_pool
 from neurite_tpu_torch.ops.pool import _upsample  # keras UpSamplingND
 from neurite_tpu_torch.parallel import spatial as sharding
@@ -136,10 +141,12 @@ class Conv(nn.Module):
 
     def _forward(self, x):
         dt = self.dtype or x.dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        x = x.movedim(-1, 1).to(dt)
+        with trace.span('unet/cast'):
+            w = self.weight.to(dt)
+            b = None if self.bias is None else self.bias.to(dt)
+            x = x.movedim(-1, 1).to(dt)
         if all(s == 1 for s in self.strides):
-            y = self._conv(x, self.weight.to(dt), b, padding=self.padding,
+            y = self._conv(x, w, b, padding=self.padding,
                            dilation=self.dilation)
             return y.movedim(1, -1)
         if self.padding == 'same':
@@ -148,8 +155,7 @@ class Conv(nn.Module):
                                               self.strides))):
                 pads += core._same_pad(n, k, st, self.dilation)
             x = F.pad(x, pads)
-        y = self._conv(x, self.weight.to(dt), b, stride=self.strides,
-                       dilation=self.dilation)
+        y = self._conv(x, w, b, stride=self.strides, dilation=self.dilation)
         return y.movedim(1, -1)
 
 
@@ -471,10 +477,12 @@ class ConvDec(nn.Module):
             raise ValueError('using skip connections requires encoder skips')
         for level, feats in enumerate(self.level_feats):
             lindex = self.nb_levels - 2 - level
-            x = _upsample(x, self.pool_size)
+            with trace.span('unet/upsample', level):
+                x = _upsample(x, self.pool_size)
             up_tensor = x
             if self.use_skip_connections:
-                x = torch.cat([skips[lindex], x], dim=-1)
+                with trace.span('unet/concat', level):
+                    x = torch.cat([skips[lindex], x], dim=-1)
             for conv in range(len(feats)):
                 last = conv == len(feats) - 1
                 x = getattr(self, f'conv_uparm_{self.nb_levels + level}_{conv}')(x)

@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from neurite_tpu_torch import checkify
+from neurite_tpu_torch import checkify, trace
 
 
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
@@ -69,28 +69,39 @@ def make_train_step(loss_fn, has_aux_vars=False, rng_names=('dropout',),
     'space' dim above 1) x and y are this rank's blocks; y_true and y_pred
     are gathered whole before `loss_fn` (`parallel.spatial`), so any loss
     sees the whole volume, as it does in JAX's GSPMD step.
+
+    While a profiler records, the step opens the span 'neurite/train/step'
+    (its args: `state.step`) around 'train/forward', 'train/loss',
+    'train/backward', 'train/grad_mean' (with `axis_name`) and
+    'train/optimizer' (`trace.span`).
     """
     del has_aux_vars, rng_names
     from neurite_tpu_torch.parallel import spatial as sharding
 
     def step(state, batch, generator=None):
-        x, y = _split(batch)
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        pred = model(x, training=True, generator=generator)
-        if sharding.active() is not None:
-            y, pred = sharding.gather_loss_inputs(y, pred)
-        loss = loss_fn(y, pred)
-        loss.backward()
-        if axis_name is not None:
-            from neurite_tpu_torch.parallel import mesh
-            ax = mesh._axis_group(axis_name)
-            mesh._mean_grads(model.parameters(), ax)
-            loss = mesh._mean_metrics({'loss': loss}, ax)['loss']
-        state.optimizer.step()
-        state.step += 1
-        return state, {'loss': loss.detach()}
+        with trace.span('train/step', state.step):
+            x, y = _split(batch)
+            model = state.model
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with trace.span('train/forward'):
+                pred = model(x, training=True, generator=generator)
+            with trace.span('train/loss'):
+                if sharding.active() is not None:
+                    y, pred = sharding.gather_loss_inputs(y, pred)
+                loss = loss_fn(y, pred)
+            with trace.span('train/backward'):
+                loss.backward()
+            if axis_name is not None:
+                from neurite_tpu_torch.parallel import mesh
+                with trace.span('train/grad_mean'):
+                    ax = mesh._axis_group(axis_name)
+                    mesh._mean_grads(model.parameters(), ax)
+                    loss = mesh._mean_metrics({'loss': loss}, ax)['loss']
+            with trace.span('train/optimizer'):
+                state.optimizer.step()
+            state.step += 1
+            return state, {'loss': loss.detach()}
 
     return step
 
@@ -130,6 +141,15 @@ def fit(state, train_step, data_iter, nb_steps, rng=None, callbacks=(),
     JAX's order: `rng`, JAX's key, is an integer seed here and, when given,
     takes the place of `seed`; `jit` has no torch meaning (the step runs
     eagerly either way).
+
+    Whenever `callbacks` or `log_every` are set, the logs read each
+    metric with `float(v)`: a host sync each step, which waits for the
+    step to finish on the device. With neither, the loop reads nothing
+    back and the host runs ahead.
+
+    While a profiler records, `annotate_step(start_step + i)` marks each
+    step's call, 'neurite/fit/next_batch' spans `next(data_iter)` (the wait
+    for the feed) and 'neurite/fit/callbacks' the logs and the callbacks.
     """
     del jit
     if rng is not None:
@@ -142,20 +162,24 @@ def fit(state, train_step, data_iter, nb_steps, rng=None, callbacks=(),
     history = []
     t0 = time.time()
     for i in range(nb_steps):
-        batch = next(data_iter)
-        state, metrics = train_step(
-            state, batch, step_generator(seed, start_step + i, device))
+        n = start_step + i
+        with trace.span('fit/next_batch', n):
+            batch = next(data_iter)
+        with annotate_step(n):
+            state, metrics = train_step(state, batch,
+                                        step_generator(seed, n, device))
 
         if callbacks or log_every:
-            logs = {k: float(v) for k, v in metrics.items()}
-            logs['time'] = time.time() - t0
-            history.append(logs)
-            for cb in callbacks:
-                if hasattr(cb, 'on_batch_end'):
-                    cb.on_batch_end(i, state=state, logs=logs)
-            if log_every and (i % log_every == 0):
-                print(f'step {i}: ' + ', '.join(
-                    f'{k}={v:.5g}' for k, v in logs.items()))
+            with trace.span('fit/callbacks', n):
+                logs = {k: float(v) for k, v in metrics.items()}
+                logs['time'] = time.time() - t0
+                history.append(logs)
+                for cb in callbacks:
+                    if hasattr(cb, 'on_batch_end'):
+                        cb.on_batch_end(i, state=state, logs=logs)
+                if log_every and (i % log_every == 0):
+                    print(f'step {i}: ' + ', '.join(
+                        f'{k}={v:.5g}' for k, v in logs.items()))
 
     for cb in callbacks:
         if hasattr(cb, 'on_train_end'):
@@ -182,7 +206,11 @@ def profile_trace(logdir):
 
 def annotate_step(step_num):
     """A `torch.profiler.record_function` span named after the step, to mark
-    steps inside a trace (JAX's `StepTraceAnnotation('train', step_num)`)."""
+    steps inside a trace (JAX's `StepTraceAnnotation('train', step_num)`);
+    like every span of the port (`trace.span`), the shared no-op while no
+    profiler records."""
+    if not trace.recording():
+        return trace.OFF
     return torch.profiler.record_function(f'train/{step_num}')
 
 
@@ -218,24 +246,28 @@ def make_checked_train_step(loss_fn):
     folded into `err.code`, and reading `err` is the one host read. The
     state is updated as `make_train_step` updates it, failed check or not
     (the gradients stay in `.grad`, so they are checked after the update).
+    The checks run in the span 'neurite/train/check', after the step's own.
     """
     base = make_train_step(loss_fn)
 
     def step(state, batch, generator=None):
         with checkify.collect() as recorded:
             state, metrics = base(state, batch, generator)
-        loss = metrics['loss']
-        recorded.append((torch.isfinite(loss), 'non-finite value in the loss'))
-        named = [(n, p) for n, p in state.model.named_parameters()
-                 if p.grad is not None]
-        if named:
-            names, params = zip(*named)
-            recorded += zip(_all_finite([p.grad for p in params]).unbind(),
-                            [f'non-finite gradient of {n}' for n in names])
-            recorded += zip(_all_finite([p.detach() for p in params]).unbind(),
-                            [f'non-finite value in {n} after the update'
-                             for n in names])
-        return checkify.error(recorded, loss.device), (state, metrics)
+        with trace.span('train/check', state.step - 1):
+            loss = metrics['loss']
+            recorded.append((torch.isfinite(loss),
+                             'non-finite value in the loss'))
+            named = [(n, p) for n, p in state.model.named_parameters()
+                     if p.grad is not None]
+            if named:
+                names, params = zip(*named)
+                recorded += zip(_all_finite([p.grad for p in params]).unbind(),
+                                [f'non-finite gradient of {n}' for n in names])
+                recorded += zip(
+                    _all_finite([p.detach() for p in params]).unbind(),
+                    [f'non-finite value in {n} after the update'
+                     for n in names])
+            return checkify.error(recorded, loss.device), (state, metrics)
 
     return step
 

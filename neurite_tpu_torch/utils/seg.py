@@ -24,7 +24,7 @@ import itertools
 import numpy as np
 import torch
 
-from neurite_tpu_torch import backend
+from neurite_tpu_torch import backend, trace
 from neurite_tpu_torch.io import tiling
 
 
@@ -213,11 +213,20 @@ def predict_volume_device(apply_fn, vol, patch_size, stride=None, agg='mean',
     vol: [*vol_shape, C_in], a tensor (it stays on its device) or an array
         (moved to `device`, the card by default).
     agg: 'mean' (overlap average) or 'sum'. Returns [*vol_shape, C_out].
+
+    While a profiler records, the call opens the spans (`trace.span`)
+    'neurite/seg/copy_in' around the volume's copy to `device` (when one is
+    made), 'seg/apply' and 'seg/accumulate' per patch (args: the patch's
+    index) and 'seg/mean' around the overlap mean.
     """
     if agg not in ('mean', 'sum'):
         raise ValueError(f"agg must be 'mean' or 'sum', got {agg!r}")
     if not torch.is_tensor(vol) or device is not None:
-        vol = torch.as_tensor(vol, device=backend.resolve_device(device))
+        device = backend.resolve_device(device)
+        moved = not torch.is_tensor(vol) or vol.device.type != device.type \
+            or device.index not in (None, vol.device.index)
+        with trace.span('seg/copy_in') if moved else trace.OFF:
+            vol = torch.as_tensor(vol, device=device)
     ndims = len(patch_size)
     if vol.ndim != ndims + 1:
         raise ValueError(f'vol {tuple(vol.shape)} is not [*vol_shape, C] for '
@@ -226,15 +235,18 @@ def predict_volume_device(apply_fn, vol, patch_size, stride=None, agg='mean',
     axis_starts, psize = tiling.patch_starts(vol_shape, patch_size, stride)
     acc = cnt = None
     with _inference(apply_fn):
-        for starts in itertools.product(*axis_starts):
+        for i, starts in enumerate(itertools.product(*axis_starts)):
             sl = tuple(slice(s, s + p) for s, p in zip(starts, psize))
-            pred = apply_fn(vol[sl][None])[0]
-            if acc is None:
-                acc = pred.new_zeros((*vol_shape, pred.shape[-1]))
-                cnt = torch.zeros(vol_shape, dtype=torch.float32,
-                                  device=pred.device)
-            acc[sl] += pred
-            cnt[sl] += 1
+            with trace.span('seg/apply', i):
+                pred = apply_fn(vol[sl][None])[0]
+            with trace.span('seg/accumulate', i):
+                if acc is None:
+                    acc = pred.new_zeros((*vol_shape, pred.shape[-1]))
+                    cnt = torch.zeros(vol_shape, dtype=torch.float32,
+                                      device=pred.device)
+                acc[sl] += pred
+                cnt[sl] += 1
         if agg == 'mean':
-            acc = acc / cnt[..., None].to(acc.dtype)
+            with trace.span('seg/mean'):
+                acc = acc / cnt[..., None].to(acc.dtype)
     return acc
