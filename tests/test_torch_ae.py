@@ -206,8 +206,9 @@ def test_autoencoder_modes_and_grads_match_jax(case):
     make, shape = AE_CASES[case]
     jm = make(ne.models)
     x = _normal(46, (4, *shape))    # batch 4: BatchNorm's batch statistics
-    variables = jm.init({'params': jax.random.PRNGKey(0),
-                         'sample': jax.random.PRNGKey(1)}, jnp.asarray(x))
+    variables = jax.jit(jm.init)({'params': jax.random.PRNGKey(0),
+                                  'sample': jax.random.PRNGKey(1)},
+                                 jnp.asarray(x))
     params = variables['params']
     stats = variables.get('batch_stats')
     key = jax.random.PRNGKey(2)
@@ -332,8 +333,9 @@ def _tiny(do_vae):
               final_pred_activation='linear', do_vae=do_vae)
     jm = ne.models.ae(**kw)
     x = _normal(48, (4, 8, 8, 1))
-    variables = jm.init({'params': jax.random.PRNGKey(0),
-                         'sample': jax.random.PRNGKey(1)}, jnp.asarray(x))
+    variables = jax.jit(jm.init)({'params': jax.random.PRNGKey(0),
+                                  'sample': jax.random.PRNGKey(1)},
+                                 jnp.asarray(x))
     tm = nt.models.ae(device='cpu', **kw)
     convert.load_flax_params(tm, variables['params'])
     return jm, variables, tm, x

@@ -97,10 +97,13 @@ def test_separable_blur3d_matches_pallas_blur(widths):
 
 
 def _jax_blur_vjp(x, ks, g):
-    _, vjp = jax.vjp(lambda *a: jblur.separable_blur3d(
-        a[0], a[1:], impl='pallas', interpret=True),
-        jnp.asarray(x), *[jnp.asarray(k) for k in ks])
-    return [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    """The Pallas blur's vjp of g, as one jitted program."""
+    def run(x, ks, g):
+        _, vjp = jax.vjp(lambda *a: jblur.separable_blur3d(
+            a[0], a[1:], impl='pallas', interpret=True), x, *ks)
+        return vjp(g)
+    return [np.asarray(a) for a in jax.jit(run)(
+        jnp.asarray(x), [jnp.asarray(k) for k in ks], jnp.asarray(g))]
 
 
 def _port_blur_grads(fn, x, ks, g):

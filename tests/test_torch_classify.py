@@ -175,8 +175,13 @@ def _adam_vs_optax(jm, tm, x, y, loss_of):
         np.testing.assert_allclose(g, gjl[p], rtol=1e-4, atol=1e-5 * scale,
                                    err_msg='/'.join(p))
     tx = optax.adam(1e-3)
-    upd, _ = tx.update(gt, tx.init(params), params)
-    want = _leaves(optax.apply_updates(params, upd))
+
+    @jax.jit
+    def adam_step(g, p):
+        upd, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+
+    want = _leaves(adam_step(gt, params))
     for p, v in _leaves(convert.to_flax_params(tm)).items():
         np.testing.assert_allclose(v, want[p], rtol=1e-6, atol=1e-8,
                                    err_msg='/'.join(p))

@@ -44,8 +44,8 @@ def test_plain_dice_sums_match_jax(jax_impl, interpret):
         sums = jops.dice_sums(a, b, impl=jax_impl, interpret=interpret)
         return sum(jnp.sum(wi * s) for wi, s in zip(w, sums)), sums
 
-    (_, jsums), jgrads = jax.value_and_grad(jloss, argnums=(0, 1),
-                                            has_aux=True)(x, y)
+    (_, jsums), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(x, y)
     for impl in ('plain', 'auto', 'kernel', 'jnp', 'pallas'):
         tsums, tgrads = _torch_sums_and_grads(x, y, w, impl)
         # rtol 1e-6: f32 sums of 1000 terms, added in another order

@@ -42,9 +42,14 @@ def _grads_vs_jax(tfwd, jfwd, arrays, out_seed=99):
     y = tfwd(*ts)
     w = _normal(out_seed, tuple(y.shape))
     (y * torch.from_numpy(w)).sum().backward()
-    jy, vjp = jax.vjp(jfwd, *[jnp.asarray(a) for a in arrays])
+
+    def run(args, ct):   # one jitted program: op by op, every op compiles
+        jy, vjp = jax.vjp(jfwd, *args)
+        return jy, vjp(ct)
+
+    jy, jgs = jax.jit(run)([jnp.asarray(a) for a in arrays], jnp.asarray(w))
     _close(y, jy)
-    for t, jg in zip(ts, vjp(jnp.asarray(w))):
+    for t, jg in zip(ts, jgs):
         _close(t.grad, jg)
 
 
@@ -95,8 +100,8 @@ def test_hyper_conv_from_dense_vs_jax(use_bias):
               hyperkernel_activation='tanh')
     x, h = _normal(3, (2, 8, 7, 6, 2)), _normal(4, (2, 5))
     jm = jhyper.HyperConv3DFromDense(**kw)
-    params = jm.init(jax.random.PRNGKey(0), [jnp.asarray(x),
-                                            jnp.asarray(h)])['params']
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                              [jnp.asarray(x), jnp.asarray(h)])['params']
     tm = nt.layers.HyperConv3DFromDense(2, 5, device='cpu', **kw)
     convert.load_flax_params(tm, params)
     _grads_vs_jax(lambda a, b: tm([a, b]),
@@ -129,8 +134,8 @@ def test_hyper_dense_vs_jax(use_bias):
     kw = dict(units=4, use_bias=use_bias, hyperbias_activation='elu')
     h = _normal(8, (3, 7))
     jm = jhyper.HyperDenseFromDense(**kw)
-    params = jm.init(jax.random.PRNGKey(1), [jnp.asarray(x),
-                                            jnp.asarray(h)])['params']
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1),
+                              [jnp.asarray(x), jnp.asarray(h)])['params']
     tm = nt.layers.HyperDenseFromDense(6, 7, device='cpu', **kw)
     convert.load_flax_params(tm, params)
     _grads_vs_jax(lambda a, c: tm([a, c]),
@@ -154,8 +159,8 @@ def test_stream_vs_jax_over_batches(name):
     jm = getattr(jstream, name)(cap=6)
     tm = getattr(nt.layers, name)(shape, cap=6, device='cpu')
     xs = [_normal(10 + i, (b, *shape)) for i, b in enumerate(BATCHES)]
-    state = jm.init(jax.random.PRNGKey(0), jnp.asarray(xs[0]),
-                    training=True)['stream_stats']
+    state = jax.jit(lambda k, a: jm.init(k, a, training=True))(
+        jax.random.PRNGKey(0), jnp.asarray(xs[0]))['stream_stats']
     convert.load_flax_params(tm, {}, stream_stats=state)
     japply = jax.jit(lambda s, x, t: jm.apply(
         {'stream_stats': s}, x, training=t, mutable=['stream_stats']),
@@ -185,7 +190,8 @@ def test_stream_gradient_and_axis_name(name):
     the batch of 3 (alpha = 3 / 2, the reference's formula)."""
     x = _normal(21, (3, 4))
     jm = getattr(jstream, name)(cap=2)
-    state = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), training=True)
+    state = jax.jit(lambda k, a: jm.init(k, a, training=True))(
+        jax.random.PRNGKey(0), jnp.asarray(x))
     tm = getattr(nt.layers, name)((4,), cap=2, device='cpu')
     _grads_vs_jax(lambda a: tm(a, training=True),
                   lambda a: jm.apply(state, a, training=True,

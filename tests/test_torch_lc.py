@@ -54,9 +54,14 @@ def _inputs(seed, B, sp, C, O, ks, padding, bf16=False):
 
 
 def _jax_vjp(fn, x, k, g, dtype=jnp.float32):
-    y, vjp = jax.vjp(fn, jnp.asarray(x, dtype), jnp.asarray(k, dtype))
-    dx, dk = vjp(jnp.asarray(g, y.dtype))
-    return [np.asarray(a.astype(jnp.float32)) for a in (y, dx, dk)]
+    """fn's value and its vjp of g, as one jitted program (op by op, the
+    tap sums and the interpreted kernels compile every op)."""
+    def run(a, b, ct):
+        y, vjp = jax.vjp(fn, a, b)
+        return (y, *vjp(ct.astype(y.dtype)))
+    out = jax.jit(run)(jnp.asarray(x, dtype), jnp.asarray(k, dtype),
+                       jnp.asarray(g))
+    return [np.asarray(a.astype(jnp.float32)) for a in out]
 
 
 def _port_grads(fn, x, k, g, dtype=torch.float32):

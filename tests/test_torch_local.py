@@ -48,12 +48,15 @@ def _leaves(tree, prefix=()):
 def _check_layer(jlayer, tlayer, x, rtol=1e-5, atol=1e-5):
     """Load flax's parameters into the port's layer; compare outputs and
     the gradients of sum(y * gy) with respect to x and every parameter."""
-    params = jlayer.init(K0, jnp.asarray(x))['params']
+    params = jax.jit(jlayer.init)(K0, jnp.asarray(x))['params']
     convert.load_flax_params(tlayer, params)
-    y, vjp = jax.vjp(lambda p, a: jlayer.apply({'params': p}, a), params,
-                     jnp.asarray(x))
-    gy = np.random.default_rng(99).normal(size=y.shape).astype(np.float32)
-    gp, gx = vjp(jnp.asarray(gy, y.dtype))
+
+    def apply(p, a):
+        return jlayer.apply({'params': p}, a)
+
+    shape = jax.eval_shape(apply, params, x).shape
+    gy = np.random.default_rng(99).normal(size=shape).astype(np.float32)
+    y, (gp, gx) = _value_and_vjp(apply, (params, jnp.asarray(x)), gy)
     xt = torch.tensor(x, requires_grad=True)
     yt = tlayer(xt)
     assert tuple(yt.shape) == y.shape
@@ -69,6 +72,15 @@ def _check_layer(jlayer, tlayer, x, rtol=1e-5, atol=1e-5):
     for p in want:
         np.testing.assert_allclose(got[p], want[p], rtol=rtol, atol=atol,
                                    err_msg='/'.join(p))
+
+
+def _value_and_vjp(f, primals, ct):
+    """f's value at `primals` and the vjp of `ct` (in the value's dtype),
+    as one jitted program (op by op, flax's layers compile every op)."""
+    def run(primals, ct):
+        y, vjp = jax.vjp(f, *primals)
+        return y, vjp(ct.astype(y.dtype))
+    return jax.jit(run)(primals, jnp.asarray(ct))
 
 
 def _x(shape, seed=0):
@@ -115,11 +127,11 @@ def test_locally_connected_bf16_params_and_compute():
                                   input_shape=(4, 5, 6, 2),
                                   param_dtype=torch.bfloat16, device='cpu')
     x = np.asarray(jnp.asarray(_x((1, 4, 5, 6, 2)), jnp.bfloat16))
-    params = jl.init(K0, x)['params']
+    params = jax.jit(jl.init)(K0, x)['params']
     assert params['kernel'].dtype == jnp.bfloat16
     convert.load_flax_params(tl, params)
     assert tl.kernel.dtype == torch.bfloat16
-    want = np.asarray(jl.apply({'params': params}, x), np.float32)
+    want = np.asarray(jax.jit(jl.apply)({'params': params}, x), np.float32)
     got = tl(torch.tensor(np.asarray(x, np.float32)).to(torch.bfloat16))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.detach().float().numpy(), want,
@@ -180,7 +192,7 @@ def test_init_matches_flax_statistics(layout, filters):
     x = jnp.zeros((1, 8, 8, 8, 4))
     jl = jlocal.LocallyConnected3D(filters=filters, kernel_size=3,
                                    padding='same', kernel_layout=layout)
-    jk = np.asarray(jl.init(K0, x)['params']['kernel'])
+    jk = np.asarray(jax.jit(jl.init)(K0, x)['params']['kernel'])
     tl = local.LocallyConnected3D(filters=filters, kernel_size=3,
                                   padding='same', input_shape=(8, 8, 8, 4),
                                   kernel_layout=layout, device='cpu',
@@ -210,9 +222,10 @@ def test_local_layers_match_flax(name):
                   local.LocalParamLayer((4, 5), mult=3., device='cpu')),
     }[name]
     if name == 'param':
-        params = jl.init(K0, jnp.asarray(x))['params']
+        params = jax.jit(jl.init)(K0, jnp.asarray(x))['params']
         convert.load_flax_params(tl, params)
-        want = np.asarray(jl.apply({'params': params}, jnp.asarray(x)))
+        want = np.asarray(jax.jit(jl.apply)({'params': params},
+                                            jnp.asarray(x)))
         got = tl(torch.from_numpy(x))
         assert got.shape == (2, 4, 5)
         np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6)
@@ -231,14 +244,16 @@ def test_local_cross_linear_trf_matches_flax(sp):
     jl = jlocal.LocalCrossLinearTrf(output_features=3)
     tl = local.LocalCrossLinearTrf((*sp, C), 3, device='cpu')
     x = _x((2, *sp, C), 6)
-    params = jl.init(K0, jnp.asarray(x))['params']
+    params = jax.jit(jl.init)(K0, jnp.asarray(x))['params']
     # displacements of a few voxels, so that the warps move something
     params = {**params, 'trf': params['trf'] * 1000.}
     convert.load_flax_params(tl, params)
-    y, vjp = jax.vjp(lambda p, a: jl.apply({'params': p}, a), params,
-                     jnp.asarray(x))
-    gy = _x(y.shape, 7)
-    gp, gx = vjp(jnp.asarray(gy))
+
+    def apply(p, a):
+        return jl.apply({'params': p}, a)
+
+    gy = _x(jax.eval_shape(apply, params, x).shape, 7)
+    y, (gp, gx) = _value_and_vjp(apply, (params, jnp.asarray(x)), gy)
     xt = torch.tensor(x, requires_grad=True)
     yt = tl(xt)
     np.testing.assert_allclose(yt.detach().numpy(), np.asarray(y), rtol=1e-5,
@@ -325,6 +340,15 @@ def _jax_params(jm, x):
     return jax.eval_shape(jm.init, K0, jnp.asarray(x))['params']
 
 
+def _adam_step(tx, grads, params):
+    """The parameters after optax's first step of `tx` from `grads`, as
+    one jitted program."""
+    def run(g, p):
+        upd, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+    return jax.jit(run)(grads, params)
+
+
 def _keys(tree, prefix=()):
     out = set()
     for k, v in tree.items():
@@ -372,9 +396,7 @@ def test_config3_step_matches_jax(config3_port, route, monkeypatch):
     # Adam: optax from the port's own gradients (where |g| is near eps,
     # Adam's first step, ~lr*sign(g), is unstable between two gradients
     # that agree to 1e-4), so that the updates compare like with like
-    tx = optax.adam(1e-4)
-    upd, _ = tx.update(p['grads'], tx.init(params), params)
-    want = _leaves(optax.apply_updates(params, upd))
+    want = _leaves(_adam_step(optax.adam(1e-4), p['grads'], params))
     got = _leaves(p['after'])
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=0,
@@ -391,7 +413,8 @@ def test_config3_bf16_step_loss_close():
     shapes = _jax_params(jm, x)
     params = jax.tree.map(lambda a, s: jnp.asarray(a, s.dtype),
                           convert.to_flax_params(tm), shapes)
-    lj = float(_mse(y, jm.apply({'params': params}, x, training=True)))
+    lj = float(jax.jit(lambda q: _mse(y, jm.apply({'params': q}, x,
+                                                  training=True)))(params))
     state = training.create_train_state(tm, training.adam(1e-4))
     step = training.make_train_step(_tmse)
     losses = []

@@ -7,6 +7,8 @@ route in interpret mode: values and gradients, the centers' included),
 `regularizers.soft_l0_wrap`. On the card (`cuda` tests) K10 must agree
 with the plain forward.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -131,7 +133,10 @@ def _hist_inputs(case):
     return x, y, cx, cy, alpha, clip, w
 
 
+@functools.cache
 def _jax_hist(case, impl):
+    """JAX's histograms and their gradients, one jitted program a case and
+    route, shared by the port's routes."""
     x, y, cx, cy, alpha, (lo, hi), w = _hist_inputs(case)
 
     def loss(a, b, ca, cb):
@@ -139,8 +144,8 @@ def _jax_hist(case, impl):
                                  impl=impl, interpret=True, bin_centers_y=cb)
         return sum(jnp.sum(wi * o) for wi, o in zip(w, out)), out
 
-    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3),
-                                         has_aux=True)(x, y, cx, cy)
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3), has_aux=True))(x, y, cx, cy)
     return out, grads
 
 

@@ -144,7 +144,8 @@ def _unet(dtype=None):
     """The JAX 2-level UNet and the port's with JAX's initial weights."""
     jm = ne.models.unet(**UNET, input_shape=(*PATCH, 1),
                         dtype=None if dtype is None else jnp.bfloat16)
-    variables = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *PATCH, 1)))
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, *PATCH, 1)))
     tm = nt.models.unet(**UNET, input_shape=(*PATCH, 1), device='cpu',
                         dtype=dtype)
     convert.load_flax_params(tm, variables['params'])

@@ -69,7 +69,8 @@ def _branch(monkeypatch, branch):
 def _layers(shape, d, use_bias):
     jl = jsparse.SpatiallySparse_Dense(input_shape=shape, output_len=d,
                                        use_bias=use_bias)
-    params = jl.init(jax.random.PRNGKey(3), [jnp.zeros((1, d))])['params']
+    params = jax.jit(jl.init)(jax.random.PRNGKey(3),
+                              [jnp.zeros((1, d))])['params']
     tl = tsparse.SpatiallySparse_Dense(shape, d, use_bias=use_bias,
                                        device='cpu')
     convert.load_flax_params(tl, params)
@@ -102,9 +103,8 @@ def test_encode_matches_jax(monkeypatch, branch, use_bias, a_fact,
         out = jl.apply({'params': p}, [yy, jnp.asarray(mask)])
         return jnp.sum(out * r), out
 
-    (_, want), (gp, gy) = jax.value_and_grad(jloss, argnums=(0, 1),
-                                             has_aux=True)(params,
-                                                           jnp.asarray(y))
+    (_, want), (gp, gy) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(y))
     yt = _t(y).requires_grad_()
     got = tl([yt, _t(mask)])
     (got * _t(r)).sum().backward()
@@ -146,9 +146,8 @@ def test_decode_matches_jax(use_bias):
         out = jl.apply({'params': p}, [xx])
         return jnp.sum(out * r), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(jloss, argnums=(0, 1),
-                                             has_aux=True)(params,
-                                                           jnp.asarray(x))
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
     xt = _t(x).requires_grad_()
     got = tl([xt])
     assert tuple(got.shape) == (3, *shape)
@@ -211,9 +210,9 @@ def test_sparse_vae_adam_steps_match_jax():
     mk = np.zeros((1, *shape), np.float32)
     mk[:, ::8] = 1.
     jm = JaxSparseVAE(shape=shape, latent=latent)
-    params = jm.init({'params': jax.random.PRNGKey(0),
-                      'sample': jax.random.PRNGKey(9)},
-                     (jnp.asarray(y), jnp.asarray(mk)))['params']
+    params = jax.jit(jm.init)({'params': jax.random.PRNGKey(0),
+                               'sample': jax.random.PRNGKey(9)},
+                              (jnp.asarray(y), jnp.asarray(mk)))['params']
 
     def jloss(p, key):
         out, inter = jm.apply({'params': p}, (y, mk), rngs={'sample': key},
@@ -223,19 +222,25 @@ def test_sparse_vae_adam_steps_match_jax():
 
     tx = optax.adam(1e-4)
     opt = tx.init(params)
+    jloss_grad = jax.jit(jax.value_and_grad(jloss, has_aux=True))
+
+    @jax.jit
+    def adam_step(g, o, p):
+        upd, o = tx.update(g, o, p)
+        return optax.apply_updates(p, upd), o
+
     tm = SparseVAE(shape, latent, 'cpu')
     convert.load_flax_params(tm, params)
     topt = torch.optim.Adam(tm.parameters(), lr=1e-4)
     yt, mt = _t(y), _t(mk)
     for i in range(3):
         key = jax.random.fold_in(jax.random.PRNGKey(5), i)
-        (lj, inter), gj = jax.value_and_grad(jloss, has_aux=True)(params, key)
+        (lj, inter), gj = jloss_grad(params, key)
         mu = np.asarray(inter['mu']['__call__'][0])
         lv = np.asarray(inter['logvar']['__call__'][0])
         zs = np.asarray(inter['sample']['__call__'][0])
         noise = (zs - mu) / np.exp(lv / 2.)
-        upd, opt = tx.update(gj, opt, params)
-        params = optax.apply_updates(params, upd)
+        params, opt = adam_step(gj, opt, params)
 
         topt.zero_grad()
         out = tm((yt, mt), _t(noise))
@@ -265,9 +270,9 @@ def test_benchmark_weights_overflow_the_sampler_in_both_packages():
     mk = np.zeros((1, *shape), np.float32)
     mk[:, ::8] = 1.
     jm = JaxSparseVAE(shape=shape, latent=latent)
-    params = jm.init({'params': jax.random.PRNGKey(0),
-                      'sample': jax.random.PRNGKey(9)},
-                     (jnp.asarray(y), jnp.asarray(mk)))['params']
+    params = jax.jit(jm.init)({'params': jax.random.PRNGKey(0),
+                               'sample': jax.random.PRNGKey(9)},
+                              (jnp.asarray(y), jnp.asarray(mk)))['params']
     out, inter = jax.jit(lambda p: jm.apply(
         {'params': p}, (y, mk), rngs={'sample': jax.random.PRNGKey(5)},
         capture_intermediates=True))(params)

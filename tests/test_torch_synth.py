@@ -8,6 +8,8 @@ model) to the port's deterministic `apply` stages; the port's own draws are
 checked against their ranges and formulas. Tolerances: 1e-5 absolute in
 float32; label maps exact where the port's warp is fed the JAX field.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -42,6 +44,12 @@ def _close(got, want, atol=ATOL):
                                atol=atol)
 
 
+def _jx(fn, *arrays, **static):
+    """fn(*arrays, **static) of the JAX package as one jitted program (op
+    by op, every op compiles on its own)."""
+    return jax.jit(functools.partial(fn, **static))(*arrays)
+
+
 def _field(seed, shape, amp=2.):
     rng = np.random.default_rng(seed)
     return (amp * rng.normal(size=shape)).astype(np.float32)
@@ -65,22 +73,22 @@ def test_integrate_vec(nb_steps):
 def test_integrate_vec_2d_and_transform():
     vec = _field(2, (10, 12, 2))
     _close(tsp.integrate_vec(_t(vec), nb_steps=4),
-           jsp.integrate_vec(jnp.asarray(vec), nb_steps=4))
+           _jx(jsp.integrate_vec, vec, nb_steps=4))
     vol = _field(3, (10, 12, 3), 1.)
     for method in ('linear', 'nearest'):
         _close(tsp.transform(_t(vol), _t(vec), interp_method=method,
                              fill_value=0.),
-               jsp.transform(jnp.asarray(vol), jnp.asarray(vec),
-                             interp_method=method, fill_value=0.))
+               _jx(jsp.transform, vol, vec, interp_method=method,
+                   fill_value=0.))
 
 
 def test_rescale_dense_transform_and_rescale_transform():
     f = _field(4, (6, 7, 8, 3))
     _close(tsp.rescale_dense_transform(_t(f), 2),
-           jsp.rescale_dense_transform(jnp.asarray(f), 2))
+           _jx(jsp.rescale_dense_transform, f, factor=2))
     m = np.eye(4, dtype=np.float32)[:3] + _field(5, (3, 4), .1)
-    _close(tsp.rescale_transform(_t(m), 2), jsp.rescale_transform(
-        jnp.asarray(m), 2))
+    _close(tsp.rescale_transform(_t(m), 2),
+           _jx(jsp.rescale_transform, m, factor=2))
 
 
 @pytest.mark.parametrize('method', ['linear', 'nearest'])
@@ -111,7 +119,7 @@ def _affine(seed):
 def test_params_to_affine_matrix_rotation_shear():
     par = _affine(6)
     for kw in (dict(shift_scale=True, last_row=True), dict(deg=False)):
-        want = jsp.params_to_affine_matrix(par=jnp.asarray(par), **kw)
+        want = _jx(lambda p: jsp.params_to_affine_matrix(par=p, **kw), par)
         _close(tsp.params_to_affine_matrix(par=_t(par), **kw), want)
     # components one by one, 2-D, and a batch of parameter vectors
     _close(tsp.params_to_affine_matrix(rotation=[30.], translation=[1., 2.],
@@ -123,8 +131,8 @@ def test_params_to_affine_matrix_rotation_shear():
     pb = np.stack([_affine(7), _affine(8)])
     got = tsp.params_to_affine_matrix(par=_t(pb), last_row=True)
     for i in range(2):
-        _close(got[i], jsp.params_to_affine_matrix(par=jnp.asarray(pb[i]),
-                                                   last_row=True))
+        _close(got[i], _jx(jsp.params_to_affine_matrix, pb[i],
+                           last_row=True))
     _close(tsp.angles_to_rotation_matrix(_t([10., -20., 5.])),
            jsp.angles_to_rotation_matrix(jnp.asarray([10., -20., 5.])))
 
@@ -134,21 +142,21 @@ def test_affine_to_dense_shift_and_compose(shift_center):
     shape = (6, 7, 8)
     m = np.asarray(jsp.params_to_affine_matrix(par=jnp.asarray(_affine(9))))
     _close(tsp.affine_to_dense_shift(_t(m), shape, shift_center=shift_center),
-           jsp.affine_to_dense_shift(jnp.asarray(m), shape,
-                                     shift_center=shift_center), 1e-4)
+           _jx(jsp.affine_to_dense_shift, m, shape=shape,
+               shift_center=shift_center), 1e-4)
     d = _field(10, (*shape, 3))
     _close(tsp.compose_affine_dense(_t(m), _t(d), shape),
-           jsp.compose_affine_dense(jnp.asarray(m), jnp.asarray(d), shape))
+           _jx(jsp.compose_affine_dense, m, d, shape=shape))
     _close(tsp.compose_transforms([_t(m), _t(d)], shift_center=shift_center),
-           jsp.compose_transforms([jnp.asarray(m), jnp.asarray(d)],
-                                  shift_center=shift_center), 1e-4)
+           _jx(lambda a, b: jsp.compose_transforms(
+               [a, b], shift_center=shift_center), m, d), 1e-4)
     # batched closed form
     mb = np.stack([np.asarray(jsp.make_square_affine(jnp.asarray(m)))] * 2)
     db = np.stack([d, _field(11, (*shape, 3))])
     got = tsp.compose_affine_dense(_t(mb), _t(db), shape)
     for i in range(2):
-        _close(got[i], jsp.compose_affine_dense(jnp.asarray(mb[i]),
-                                                jnp.asarray(db[i]), shape))
+        _close(got[i], _jx(jsp.compose_affine_dense, mb[i], db[i],
+                           shape=shape))
 
 
 def test_flip_and_swap_matrices():
@@ -209,8 +217,9 @@ def test_random_blur_rescale_with_given_kernels(reduce, batched):
     key = jax.random.PRNGKey(3)
     jred, tred = {'std': (jnp.std, taug.std), 'max': (jnp.max, torch.max)}[
         reduce]
-    want = jaug.random_blur_rescale(jnp.asarray(x), std_min=1., std_max=3.,
-                                    seed=key, reduce=jred, batched=batched)
+    want = jax.jit(lambda a, k: jaug.random_blur_rescale(
+        a, std_min=1., std_max=3., seed=k, reduce=jred, batched=batched))(
+        x, key)
     ks = [_t(k) for k in _jax_blur_kernels(key, 3, 1., 3.)]
     got = taug.blur_rescale(_t(x), ks, reduce=tred, batched=batched)
     _close(got, want)
@@ -245,7 +254,7 @@ def test_perlin_draws():
 def test_gaussian_blur_layer_fixed_sigma():
     x = _field(13, (2, 10, 11, 12, 2), 1.)
     for kw in (dict(sigma=1.2), dict(sigma=[0.5, 1., 0.]), dict(level=2)):
-        want = jrandom.GaussianBlur(**kw).apply({}, jnp.asarray(x))
+        want = jax.jit(jrandom.GaussianBlur(**kw).apply)({}, x)
         _close(trandom.GaussianBlur(**kw)(_t(x)), want)
 
 
@@ -253,8 +262,8 @@ def test_gaussian_blur_layer_random_sigma_given():
     """The random sigma drawn by JAX, handed to the port's apply."""
     x = _field(14, (1, 10, 11, 12, 1), 1.)
     key = jax.random.PRNGKey(4)
-    want = jrandom.GaussianBlur(sigma=2., min_sigma=.5, random=True).apply(
-        {}, jnp.asarray(x), key=key)
+    want = jax.jit(lambda a, k: jrandom.GaussianBlur(
+        sigma=2., min_sigma=.5, random=True).apply({}, a, key=k))(x, key)
     eps = float(np.finfo(np.float32).eps)
     sig = [jax.random.uniform(k, (), minval=.5, maxval=2.)
            for k in jax.random.split(key, 3)]

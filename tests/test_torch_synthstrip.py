@@ -277,8 +277,8 @@ def test_synthstrip_forward_and_adam_step_match_jax():
     labels = np.random.default_rng(32).integers(0, 6, size=(1, 16, 16, 16, 1))
     jm = ne.models.SynthStrip(inshape=(16,) * 3, **kw)
     key = jax.random.PRNGKey(5)
-    params = jm.init({'params': jax.random.PRNGKey(0), 'augment': key},
-                     jnp.asarray(labels))['params']
+    params = jax.jit(jm.init)({'params': jax.random.PRNGKey(0),
+                               'augment': key}, jnp.asarray(labels))['params']
 
     @jax.jit
     def fwd_grad(p):
@@ -316,9 +316,14 @@ def test_synthstrip_forward_and_adam_step_match_jax():
                                    err_msg='/'.join(p))
     # Adam from the port's own gradients (see test_torch_training)
     tx = optax.adam(1e-3)
-    upd, _ = tx.update({'unet': convert.to_flax_params(tm.unet, grad=True)},
-                       tx.init(params), params)
-    want = _leaves(optax.apply_updates(params, upd))
+
+    @jax.jit
+    def adam_step(g, q):
+        upd, _ = tx.update(g, tx.init(q), q)
+        return optax.apply_updates(q, upd)
+
+    want = _leaves(adam_step(
+        {'unet': convert.to_flax_params(tm.unet, grad=True)}, params))
     for p, v in _leaves(convert.to_flax_params(tm)).items():
         np.testing.assert_allclose(v, want[p], rtol=1e-6, atol=1e-8,
                                    err_msg='/'.join(p))

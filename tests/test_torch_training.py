@@ -80,8 +80,13 @@ def test_train_step_matches_jax_grads_and_adam():
     # near eps (where Adam's first step, ~lr*sign(g), is unstable) compare
     # like with like; the updates then agree to float32 rounding
     tx = optax.adam(1e-3)
-    upd, _ = tx.update(gt, tx.init(params), params)
-    want = _leaves(optax.apply_updates(params, upd))
+
+    @jax.jit
+    def adam_step(g, p):
+        upd, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+
+    want = _leaves(adam_step(gt, params))
     for p, v in _leaves(convert.to_flax_params(tm)).items():
         np.testing.assert_allclose(v, want[p], rtol=1e-6, atol=1e-8,
                                    err_msg='/'.join(p))

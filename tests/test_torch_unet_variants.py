@@ -108,8 +108,13 @@ def test_space_to_depth_matches_flax(name):
     _grads_close(gt, gj)
     # Adam from the port's own gradients (as tests/test_torch_training.py)
     tx = optax.adam(1e-3)
-    upd, _ = tx.update(gt, tx.init(params), params)
-    want = _leaves(optax.apply_updates(params, upd))
+
+    @jax.jit
+    def adam_step(g, p):
+        upd, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, upd)
+
+    want = _leaves(adam_step(gt, params))
     for p, v in _leaves(convert.to_flax_params(tm)).items():
         np.testing.assert_allclose(v, want[p], rtol=1e-6, atol=1e-8,
                                    err_msg='/'.join(p))

@@ -151,10 +151,13 @@ def test_aliases_batch_and_channels():
 
 
 def _jax_vjp(vol, loc, method, fill, g):
-    _, vjp = jax.vjp(lambda v, l: jcore.interpn(v, l, interp_method=method,
-                                                fill_value=fill),
-                     jnp.asarray(vol), jnp.asarray(loc))
-    return [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    """JAX interpn's vjp of g, as one jitted program."""
+    def run(vol, loc, g):
+        _, vjp = jax.vjp(lambda v, l: jcore.interpn(
+            v, l, interp_method=method, fill_value=fill), vol, loc)
+        return vjp(g)
+    return [np.asarray(a) for a in jax.jit(run)(
+        jnp.asarray(vol), jnp.asarray(loc), jnp.asarray(g))]
 
 
 def _torch_grads(fn, vol, loc, g):
