@@ -1813,33 +1813,25 @@ def keras_fwd_dx_calls(x, kv, g, padding, ks=LC_KS):
     return calls
 
 
-class EncDecLC(torch.nn.Module):
-    """Config #3 (`bench.py:335-372`): the UNet trunk feeding a
-    LocallyConnected3D head. Attribute names follow the flax tree
-    (`ne.models.unet` drops its name, so flax calls the trunk UNet_0).
-    impl='plain' takes the plain pool and LC forms on the card. It computes
-    nothing of its own, so under spatial sharding it is a 'local'
-    container (`parallel.spatial`)."""
-
-    spatial_rule = 'local'
-
-    def __init__(self, size, dtype, impl='auto'):
-        super().__init__()
-        gen = torch.Generator().manual_seed(0)
-        sp = (size,) * 3
-        self.UNet_0 = nt.models.unet(
-            nb_features=8, input_shape=(*sp, 1), nb_levels=3, conv_size=3,
-            nb_labels=4, feat_mult=2, final_pred_activation='linear',
-            dtype=dtype, conv_impl='auto',
-            pool_impl='plain' if impl == 'plain' else 'kernel',
-            generator=gen, device='cuda')
-        self.lc = nt.layers.LocallyConnected3D(
-            filters=1, kernel_size=3, padding='same', input_shape=(*sp, 4),
-            param_dtype=dtype or torch.float32, impl=impl, generator=gen,
-            device='cuda')
-
-    def forward(self, x, training=None, generator=None):
-        return self.lc(self.UNet_0(x, training=training, generator=generator))
+def config3(size, dtype, impl='auto'):
+    """Config #3 (`bench.py:335-372`) at size^3 through the port's
+    `nt.models.UNetLC`: `nt.models.unet_lc` with bench.py's settings, in
+    `dtype` (None: float32). impl='plain' builds its twin from the same
+    draws: the same trunk and head over the plain pool and LC forms."""
+    sp = (size,) * 3
+    param_dtype = dtype or torch.float32
+    if impl != 'plain':
+        return nt.models.unet_lc(input_shape=(*sp, 1), dtype=dtype,
+                                 param_dtype=param_dtype, device='cuda')
+    gen = torch.Generator().manual_seed(0)
+    trunk = nt.models.unet(
+        nb_features=8, input_shape=(*sp, 1), nb_levels=3, conv_size=3,
+        nb_labels=4, feat_mult=2, final_pred_activation='linear',
+        dtype=dtype, pool_impl='plain', generator=gen, device='cuda')
+    head = nt.layers.LocallyConnected3D(
+        filters=1, kernel_size=3, padding='same', input_shape=(*sp, 4),
+        param_dtype=param_dtype, impl='plain', generator=gen, device='cuda')
+    return nt.models.UNetLC(trunk, head)
 
 
 def config3_inputs(size):
@@ -1894,7 +1886,7 @@ def phase_lc_check(checks):
     x, y = config3_inputs(LC_CHECK_VOL)
     plain_vs_kernels(
         checks, 'config #3',
-        lambda impl: (EncDecLC(LC_CHECK_VOL, None, impl), mse),
+        lambda impl: (config3(LC_CHECK_VOL, None, impl), mse),
         lambda: ((x, y),),
         {'lc_fwd': 1, 'lc_fwd_row': 1, 'lc_dk': 1, 'lc_dk_row': 1,
          'lc_dx': 1, 'lc_dx_row': 1, 'pool2_fwd': 2, 'pool2_bwd': 2})
@@ -1904,7 +1896,7 @@ def phase_lc_train(checks, res):
     print(f'== 12. config #3: UNet -> LocallyConnected3D head, bf16, '
           f'{TRAIN_STEPS} steps at {LC_VOL}^3', flush=True)
     t0 = time.perf_counter()
-    model = EncDecLC(LC_VOL, torch.bfloat16)
+    model = config3(LC_VOL, torch.bfloat16)
     init_s = time.perf_counter() - t0
     n_par = sum(p.numel() for p in model.parameters())
     print(f'  model built in {init_s:.3f} s (weights drawn on the CPU, then '
@@ -3970,7 +3962,7 @@ def space_lc(rank, mesh, out):
     x, y = config3_inputs(LC_VOL)
     batch = parallel.shard_batch((x, y), mesh)
     del x, y
-    model = EncDecLC(LC_VOL, torch.bfloat16)
+    model = config3(LC_VOL, torch.bfloat16)
     lc = model.lc
     state = training.create_train_state(model, training.adam(1e-4))
     step = parallel.make_sharded_train_step(
@@ -4087,7 +4079,7 @@ def space_reference():
     del state, step, x, y
     torch.cuda.empty_cache()
     x, y = config3_inputs(LC_VOL)
-    state = training.create_train_state(EncDecLC(LC_VOL, torch.bfloat16),
+    state = training.create_train_state(config3(LC_VOL, torch.bfloat16),
                                         training.adam(1e-4))
     step = training.make_train_step(mse)
     run = timed_steps(step, state, ((x, y),), n=6)

@@ -26,7 +26,7 @@ import math
 import torch
 import torch.nn as nn
 
-from neurite_tpu_torch import backend
+from neurite_tpu_torch import backend, trace
 from neurite_tpu_torch.models.unet import (_lecun_normal, _tuple,
                                            get_activation)
 from neurite_tpu_torch.ops import lc_cuda, lc_tap
@@ -295,6 +295,9 @@ class LocallyConnected(_Local):
     of its kernel and bias (the parameters themselves when
     `make_sharded_train_step`'s `param_specs` split them over 'space');
     other forms gather.
+
+    While a profiler records, `_forward` opens the span 'neurite/lc/forward'
+    (`trace.span`) around the work of every route.
     """
 
     rank = 3
@@ -357,6 +360,10 @@ class LocallyConnected(_Local):
         return self._forward(x)
 
     def _forward(self, x):
+        with trace.span('lc/forward'):
+            return self._local_conv(x)
+
+    def _local_conv(self, x):
         nd = self.rank
         if tuple(x.shape[1:]) != self.input_shape:
             raise ValueError(f'expected input [B, *{self.input_shape}], got '

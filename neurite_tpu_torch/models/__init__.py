@@ -17,3 +17,4 @@ from neurite_tpu_torch.models.synth import (  # noqa: F401
     LabelsToImage, LabelsToImageV1, SynthStripModule,
     labels_to_image, labels_to_image_new, SynthStrip,
 )
+from neurite_tpu_torch.models.local import UNetLC, unet_lc  # noqa: F401

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from neurite_tpu_torch import trace
 from neurite_tpu_torch.ops import _build, lc_tap
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -338,7 +339,9 @@ class LCTransposed(torch.autograd.Function):
     Locally-connected 3-D conv: forward K7, backward K8 (dk in the weights'
     dtype and layout) and K9 (dx in x's dtype) for CUDA tensors; the plain
     versions for CPU tensors. `keras` reads the weights in the keras layout
-    and rounds K9's products to their dtype, as the v1 kernels do.
+    and rounds K9's products to their dtype, as the v1 kernels do. While a
+    profiler records, the backward opens the spans 'neurite/lc/dx' and
+    'neurite/lc/dk' around them, on the thread autograd runs it on.
     """
 
     @staticmethod
@@ -357,12 +360,14 @@ class LCTransposed(torch.autograd.Function):
         dx = dk = None
         if ctx.needs_input_grad[0]:
             fn = dx_cuda if g.is_cuda else dx_plain
-            dx = fn(g, _weight_view(kernel, keras), ks, padding,
-                    tuple(x.shape), x.dtype, keras)
+            with trace.span('lc/dx'):
+                dx = fn(g, _weight_view(kernel, keras), ks, padding,
+                        tuple(x.shape), x.dtype, keras)
         if ctx.needs_input_grad[1]:
             fn = dk_cuda if g.is_cuda else dk_plain
-            dk = fn(g, x, ks, padding, kernel.dtype, keras).reshape(
-                kernel.shape)
+            with trace.span('lc/dk'):
+                dk = fn(g, x, ks, padding, kernel.dtype, keras).reshape(
+                    kernel.shape)
         return dx, dk, None, None, None
 
 

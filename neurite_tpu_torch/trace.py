@@ -2,7 +2,8 @@
 Spans inside the port: `torch.profiler.record_function` ranges named
 'neurite/<layer>/<phase>', opened at the boundaries of the layers a
 profile is read by (the train step's phases, `fit`'s loop, the synthesis,
-the UNet's glue around its convs, the serve path's patches).
+the UNet's glue around its convs, the serve path's patches, the
+LocallyConnected forward and its K8/K9 backward).
 
 A span records only while a `torch.profiler` session records: otherwise
 `span` returns one shared no-op context, at the cost of one flag read, so

@@ -300,25 +300,12 @@ class JaxEncDecLC(fnn.Module):
             param_dtype=self.param_dtype, name='lc')(u(x, training=training))
 
 
-class EncDecLC(torch.nn.Module):
-    """The port's config #3 model; attribute names follow the flax tree
-    (`ne.models.unet` drops its name, so flax calls the trunk UNet_0)."""
-
-    def __init__(self, size, dtype, param_dtype, device, lc_impl='auto'):
-        super().__init__()
-        gen = torch.Generator().manual_seed(0)
-        self.UNet_0 = nt.models.unet(
-            nb_features=8, input_shape=(size,) * 3 + (1,), nb_levels=3,
-            conv_size=3, nb_labels=4, feat_mult=2,
-            final_pred_activation='linear', dtype=dtype, conv_impl='auto',
-            generator=gen, device=device)
-        self.lc = nt.layers.LocallyConnected3D(
-            filters=1, kernel_size=3, padding='same',
-            input_shape=(size,) * 3 + (4,), param_dtype=param_dtype,
-            impl=lc_impl, generator=gen, device=device)
-
-    def forward(self, x, training=None, generator=None):
-        return self.lc(self.UNet_0(x, training=training, generator=generator))
+def EncDecLC(size, dtype, param_dtype, device):
+    """The port's config #3 model, `nt.models.unet_lc`, at size^3:
+    attribute names follow the flax tree (`ne.models.unet` drops its name,
+    so flax calls the trunk UNet_0)."""
+    return nt.models.unet_lc(input_shape=(size,) * 3 + (1,), dtype=dtype,
+                             param_dtype=param_dtype, device=device)
 
 
 def _mse(yt, yp):
