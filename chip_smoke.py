@@ -25,7 +25,11 @@ config #3's model partitioned along z over ranks
 (`make_sharded_train_step` on a 'space' mesh), and the six
 `examples_torch` scripts; and checks every hand-written kernel on them
 against its plain PyTorch version, each path's launch counts set to 0 just
-before it and read just after. Phases (phase
+before it and read just after. Every path that trains steps through
+`training.adam`, so each also checks K11's launches (Adam): exactly
+`adam_per_step`'s a step, one for each run of up to 64 leaves of one
+dtype, by the 'vec' body unless a leaf's length is ragged; a plain twin
+launches those and nothing else. Phases (phase
 1 runs whatever --phases names):
 
   1. device: the card, its power limit, the torch and CUDA versions;
@@ -51,8 +55,9 @@ before it and read just after. Phases (phase
      from the same weights (TF32 off, deterministic cuDNN): losses within
      rtol 1e-5, each gradient within 1e-4 of its largest magnitude (the Dice
      sums' order is the only difference);
-  6. 10 bfloat16 training steps: finite losses, launch counts of K1, K2 and
-     K3 exactly those of 10 steps, every K1 and K3 launch by its 'vec' body,
+  6. 10 bfloat16 training steps: finite losses, launch counts of K1, K2,
+     K3 and K11 (Adam, one launch a step) exactly those of 10 steps, every
+     K1, K3 and K11 launch by its 'vec' body,
      median step time, vol/s, peak memory; a profile of 3 more steps;
   7. interpolation: K4 vs the plain gather chain at the synthesis path's
      shapes ([1, 64^3, 3] linear under a smooth +-8 voxel field and under
@@ -122,9 +127,10 @@ before it and read just after. Phases (phase
      nb_levels=3, feat_mult=2, linear output, bf16 compute) feeding
      LocallyConnected3D(filters=1, kernel_size=3, 'same', bf16 weights
      [1, 108, 160^3]), MSE, Adam 1e-4, 160^3, 10 steps: finite losses,
-     launch counts of K1, K2 and K7-K9 exactly those of 10 steps, each of
+     launch counts of K1, K2, K7-K9 and K11 (2 a step: the trunk's float32
+     group and the head's bfloat16 one) exactly those of 10 steps, each of
      K7-K9 by its row body every step (`lc_fwd_row`, `lc_dk_row`,
-     `lc_dx_row`) and each K1 launch by its 'vec' body (`pool2_fwd_vec`),
+     `lc_dx_row`), each K1 and K11 launch by its 'vec' body,
      median step ms, vol/s, peak memory; a profile of 3
      steps;
  13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
@@ -268,8 +274,9 @@ before it and read just after. Phases (phase
      step 0's among them, bit-equal to a run of a fresh model from the same
      weights on synchronous `.to('cuda')` puts of the same batches; the
      producer thread ended after `close()`; 10 steps from disk: finite
-     losses, launches exactly K1 3, K2 3, K3 1 a step (K1 and K3 by their
-     'vec' bodies) and no other kernel, median step ms, peak memory, a
+     losses, launches exactly K1 3, K2 3, K3 1, K11 1 a step (K1, K3 and
+     K11 by their 'vec' bodies) and no other kernel, median step ms, peak
+     memory, a
      profile of 3 steps (idle share), and the same step on one resident
      batch beside it;
  27. the threaded feed: 8 volumes of 128^3 float32 `.npz` (`vol_data`) ->
@@ -318,6 +325,19 @@ before it and read just after. Phases (phase
      16, 128^3) within 1e-5 of max |y| (TF32 off); launches exactly K7,
      K8, K9 1, K4 2, K6 6, K3 1 a rank; each op's host ms a rank (both
      ranks at once) beside the unsharded op's on one rank alone.
+ 32. Adam: K11 (`ops/csrc/adam.cu`) at config #3's leaves (the trunk's
+     float32, the head's kernel and bias bfloat16; 2 launches a step, by
+     the 'vec' body), the flagship's (float32; 1, 'vec') and SynthStrip's
+     (54 float32 leaves, one of 1 element; 1, 'scalar'), each leaf drawn
+     on the card with a gradient: 3 steps against the plain version on
+     clones, each step from K11's state (float32 within rtol 1e-6, atol
+     1e-7; bfloat16 apart on at most 1e-3 of the elements, by one ulp or
+     1e-6), the launches and their bodies exactly those; the
+     device ms of a step in turns with foreach torch.optim.Adam (the
+     form before K11: foreach, K11, K11, foreach), each also as one call
+     with its host launch, fused torch.optim.Adam (library_ms, timed here
+     and never called by the port), the plain version and the bound (7
+     bytes a parameter byte over 3.35 TB/s).
 
 A kernel's, plain version's or library call's ms is its device time: the
 durations of the device events torch.profiler records over 20 calls,
@@ -363,9 +383,9 @@ from neurite_tpu_torch.layers import sparse
 from neurite_tpu_torch.models.ae import Dense
 from neurite_tpu_torch.models.unet import Conv
 from neurite_tpu_torch.io import tiling
-from neurite_tpu_torch.ops import (_build, blur, blur_cuda, dice_red, lc_cuda,
-                                   mi_hist, mi_hist_cuda, pool, pool_cuda,
-                                   warp_cuda)
+from neurite_tpu_torch.ops import (_build, adam, blur, blur_cuda, dice_red,
+                                   lc_cuda, mi_hist, mi_hist_cuda, pool,
+                                   pool_cuda, warp_cuda)
 from neurite_tpu_torch.utils import core, seg, spatial
 
 VOL = 128
@@ -406,6 +426,8 @@ KERNELS = {
               'neurite_tpu/ops/pallas_lc.py:252', '10', '12'),
     'mi_hist': ('neurite_tpu_torch/ops/csrc/mi_hist.cu',
                 'neurite_tpu/ops/mi_hist.py:90', '13', '15'),
+    'adam': ('neurite_tpu_torch/ops/csrc/adam.cu',
+             'none (the JAX package leaves Adam to optax.adam)', '32', '12'),
 }
 # each kernel's body counters (`_build.launches`): the kernels line gives
 # their counts from the path run beside the kernel's launches
@@ -415,31 +437,34 @@ BODY_COUNTERS = {
     'blur': ('blur_whole',), 'lc_fwd': ('lc_fwd_row', 'lc_fwd_keras_row'),
     'lc_dk': ('lc_dk_row', 'lc_dk_keras_row'),
     'lc_dx': ('lc_dx_row', 'lc_dx_keras_row'),
-    'mi_hist': ('mi_hist_tiled',),
+    'mi_hist': ('mi_hist_tiled',), 'adam': ('adam_vec', 'adam_scalar'),
 }
 # the paths that run ported kernels at other shapes: (the phase that counts
 # their launches, the kernels they run); the kernels line gives each
 # kernel's launches on each in `paths`
 PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
-                                   'blur')),
-             'vae': ('19', ('pool2_fwd', 'pool2_bwd')),
-             's2d': ('22', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
-             'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+                                   'blur', 'adam')),
+             'vae': ('19', ('pool2_fwd', 'pool2_bwd', 'adam')),
+             's2d': ('22', ('pool2_fwd', 'pool2_bwd', 'dice_sums', 'adam')),
+             'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
+                              'adam')),
              'serve': ('24', ('pool2_fwd',)),
-             'classify': ('25', ('pool2_fwd', 'pool2_bwd')),
-             'disk': ('26', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'classify': ('25', ('pool2_fwd', 'pool2_bwd', 'adam')),
+             'disk': ('26', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
+                             'adam')),
              # per rank: a list, one entry a rank
-             'dp': ('28', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'dp': ('28', ('pool2_fwd', 'pool2_bwd', 'dice_sums', 'adam')),
              'halo': ('29', ('dice_sums', 'interpn', 'blur', 'lc_fwd',
                              'lc_dk', 'lc_dx')),
-             'space': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums')),
+             'space': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
+                              'adam')),
              'space_lc': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
-                                 'lc_fwd', 'lc_dk', 'lc_dx'))}
+                                 'lc_fwd', 'lc_dk', 'lc_dx', 'adam'))}
 MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms')
 PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
           '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23',
-          '24', '25', '26', '27', '28', '29', '30', '31')
+          '24', '25', '26', '27', '28', '29', '30', '31', '32')
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -1010,6 +1035,8 @@ def phase_train(checks, res, x, y):
                      f'{got} (expected {n})')
         record_launches(res, name, counts)
     check_vec_bodies(checks, 'flagship', counts)
+    check_adam_counts(checks, 'flagship', counts,
+                      adam_per_step(state.optimizer), TRAIN_STEPS)
     report_steps('flagship', times, peak)
     try:
         report_profile('flagship step',
@@ -1026,6 +1053,39 @@ def check_vec_bodies(checks, path, counts):
             checks.check(f'{path} launches {name}_vec', got == counts[name],
                          f'{got} (expected {counts[name]}, every {name} '
                          f'launch)')
+
+
+def adam_per_step(optimizer):
+    """K11's launches a step of `optimizer` (an `ops.adam.Adam`) over the
+    parameters that hold a gradient, as `adam.adam_cuda` groups them: one
+    for each run of up to adam.MAX_TENSORS non-empty tensors of one group
+    and dtype, counted 'adam_vec' where every length in it is a multiple
+    of a 16-byte vector's width (the caching allocator starts each tensor
+    512-byte aligned), else 'adam_scalar'."""
+    out = {'adam': 0, 'adam_vec': 0, 'adam_scalar': 0}
+    for group in optimizer.param_groups:
+        by_dtype = {}
+        for p in group['params']:
+            if p.grad is not None and p.numel():
+                by_dtype.setdefault(p.dtype, []).append(p)
+        for ps in by_dtype.values():
+            width = 16 // ps[0].element_size()
+            for at in range(0, len(ps), adam.MAX_TENSORS):
+                part = ps[at:at + adam.MAX_TENSORS]
+                out['adam'] += 1
+                out['adam_vec' if all(p.numel() % width == 0 for p in part)
+                    else 'adam_scalar'] += 1
+    return out
+
+
+def check_adam_counts(checks, path, counts, want, steps):
+    """K11's launches in a path run's counts exactly `want` (launches a
+    step, `adam_per_step`'s) times `steps`, a body counter that `want`
+    gives 0 among them."""
+    got = {k: counts.get(k, 0) for k in want}
+    total = {k: n * steps for k, n in want.items()}
+    checks.check(f'{path} launches adam', got == total and got['adam'] > 0,
+                 f'{got} (expected {want} a step)')
 
 
 def smooth_field(shape, amp, gen):
@@ -1434,6 +1494,8 @@ def phase_synth_train(checks, res):
         if name in ('interpn', 'blur'):
             record_launches(res, name, counts)
     check_vec_bodies(checks, 'config #5', counts)
+    check_adam_counts(checks, 'config #5', counts,
+                      adam_per_step(state.optimizer), TRAIN_STEPS)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     s_ms = statistics.median(synth_ms[WARMUP_STEPS:])
     print(f'  synthesis ms (CUDA events, median of steps {WARMUP_STEPS + 1}-'
@@ -1851,7 +1913,9 @@ def plain_vs_kernels(checks, path, make, step_args, launches):
     through their plain versions ('plain') from the same weights and the
     same draws (TF32 off, deterministic cuDNN): the losses within rtol
     1e-5, every gradient within 1e-4 of its largest magnitude, the kernel
-    run's launches `launches`, the plain run's none."""
+    run's launches `launches`, and each run's K11 launches (both step
+    through `training.adam`) exactly `adam_per_step`'s, the plain run's no
+    others."""
     flags = exact_f32()
     try:
         runs = {}
@@ -1863,11 +1927,14 @@ def plain_vs_kernels(checks, path, make, step_args, launches):
             runs[impl] = (float(m['loss']), dict(_build.launches),
                           {n: p.grad.detach().clone()
                            for n, p in model.named_parameters()})
+            want = {k: n for k, n in adam_per_step(state.optimizer).items()
+                    if n}
             del model, state
         (lk, nk, gk), (lp, np_, gp) = runs['auto'], runs['plain']
         checks.check(f'{path} f32 launches', all(
-            nk.get(n, 0) == c for n, c in launches.items()) and not np_,
-            f'kernels {nk}, plain {np_}')
+            nk.get(n, 0) == c for n, c in {**launches, **want}.items())
+            and np_ == want,
+            f'kernels {nk}, plain {np_} (K11 a step: {want})')
         checks.check(f'{path} f32 loss', abs(lk - lp) <= 1e-5 * abs(lp),
                      f'kernels {lk!r} plain {lp!r} (rtol 1e-5)')
         worst = max(float((gk[n] - gp[n]).abs().max() / gp[n].abs().max())
@@ -1924,12 +1991,13 @@ def phase_lc_train(checks, res):
     checks.check('config #3 head moments in the parameter dtype',
                  moments == torch.bfloat16, str(moments))
     per_step = {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1, 'lc_fwd_row': 1,
-                'lc_dk': 1, 'lc_dk_row': 1, 'lc_dx': 1, 'lc_dx_row': 1}
+                'lc_dk': 1, 'lc_dk_row': 1, 'lc_dx': 1, 'lc_dx_row': 1,
+                'adam': 2, 'adam_vec': 2}
     for name, n in per_step.items():
         got, want = counts.get(name, 0), n * TRAIN_STEPS
         checks.check(f'config #3 launches {name}', got == want and got > 0,
                      f'{got} (expected {n} per step)')
-        if name in ('lc_fwd', 'lc_dk', 'lc_dx'):
+        if name in ('lc_fwd', 'lc_dk', 'lc_dx', 'adam'):
             record_launches(res, name, counts)
     check_vec_bodies(checks, 'config #3', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
@@ -2405,8 +2473,9 @@ def phase_strip_train(checks, res):
                       {'pool2_fwd': 6, 'pool2_fwd_vec': 6, 'pool2_bwd': 6,
                        'interpn': 6, 'interpn_vec': 6, 'blur': 3,
                        'blur_whole': 3}, TRAIN_STEPS)
-    record_path(res, 'synthstrip', counts,
-                ('pool2_fwd', 'pool2_bwd', 'interpn', 'blur'))
+    check_adam_counts(checks, 'SynthStrip', counts,
+                      adam_per_step(state.optimizer), TRAIN_STEPS)
+    record_path(res, 'synthstrip', counts, PATH_RUNS['synthstrip'][1])
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (synthesis + train step, median of steps '
           f'{WARMUP_STEPS + 1}-{TRAIN_STEPS}): {step_ms:.3f}; all: '
@@ -2476,7 +2545,9 @@ def phase_vae_train(checks, res):
     check_step_counts(checks, 'config #4', counts,
                       {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3},
                       TRAIN_STEPS)
-    record_path(res, 'vae', counts, ('pool2_fwd', 'pool2_bwd'))
+    check_adam_counts(checks, 'config #4', counts,
+                      adam_per_step(state.optimizer), TRAIN_STEPS)
+    record_path(res, 'vae', counts, PATH_RUNS['vae'][1])
     report_steps('config #4', times, peak)
     try:
         report_profile('config #4 step', lambda i: step(state, (x, x), gen),
@@ -2699,7 +2770,10 @@ def phase_sparse_train(checks):
           f'({1e3 / step_ms:.3f} vol/s); its loss {first[0]:.6g}', flush=True)
     state = fresh_state()
     init.clear()
-    state, losses, times, _, peak = timed_steps(step, state, (batch, gen))
+    state, losses, times, counts, peak = timed_steps(step, state,
+                                                     (batch, gen))
+    check_adam_counts(checks, 'sparse VAE', counts,
+                      adam_per_step(state.optimizer), TRAIN_STEPS)
     checks.check('sparse VAE first loss finite unless the sampler overflows',
                  bool(np.isfinite(losses[0])) != overflow,
                  f'max log-variance {lv_max:.4g} (exp(lv / 2) overflows '
@@ -2749,7 +2823,9 @@ def phase_s2d(checks, res):
     check_step_counts(checks, 'flagship s2d', counts,
                       {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3,
                        'dice_sums': 1, 'dice_sums_vec': 1}, TRAIN_STEPS)
-    record_path(res, 's2d', counts, ('pool2_fwd', 'pool2_bwd', 'dice_sums'))
+    check_adam_counts(checks, 'flagship s2d', counts,
+                      adam_per_step(state.optimizer), TRAIN_STEPS)
+    record_path(res, 's2d', counts, PATH_RUNS['s2d'][1])
     report_steps('flagship s2d', times, peak)
     try:
         report_profile('flagship s2d step',
@@ -2815,8 +2891,9 @@ def phase_remat(checks, res):
                               {'pool2_fwd': 6, 'pool2_fwd_vec': 6,
                                'pool2_bwd': 3, 'dice_sums': 1,
                                'dice_sums_vec': 1}, TRAIN_STEPS)
-            record_path(res, 'remat', counts,
-                        ('pool2_fwd', 'pool2_bwd', 'dice_sums'))
+            check_adam_counts(checks, label, counts,
+                              adam_per_step(state.optimizer), TRAIN_STEPS)
+            record_path(res, 'remat', counts, PATH_RUNS['remat'][1])
             try:
                 report_profile('flagship remat step',
                                lambda i: step(state, (x, y)), TRAIN_STEPS)
@@ -3079,13 +3156,16 @@ def phase_classify(checks, res):
             runs[device] = (float(m['loss']), dict(_build.launches),
                             {n: p.grad.detach().cpu()
                              for n, p in model.named_parameters()})
+            if device == 'cuda':
+                want = adam_per_step(state.optimizer)
             del model, state
     finally:
         restore_flags(flags)
     (lk, counts, gk), (lc, cpu_counts, gc) = runs['cuda'], runs['cpu']
     check_step_counts(checks, 'classify', counts,
                       {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3}, 1)
-    record_path(res, 'classify', counts, ('pool2_fwd', 'pool2_bwd'))
+    check_adam_counts(checks, 'classify', counts, want, 1)
+    record_path(res, 'classify', counts, PATH_RUNS['classify'][1])
     checks.check('EncoderNet f32 loss, card vs CPU',
                  abs(lk - lc) <= 1e-5 * abs(lc) and not cpu_counts,
                  f'card {lk!r} CPU {lc!r} (rtol 1e-5)')
@@ -3350,10 +3430,11 @@ def phase_disk(checks, res):
         check_step_counts(checks, 'disk', counts,
                           {'pool2_fwd': 3, 'pool2_fwd_vec': 3,
                            'pool2_bwd': 3, 'dice_sums': 1,
-                           'dice_sums_vec': 1}, TRAIN_STEPS)
+                           'dice_sums_vec': 1, 'adam': 1, 'adam_vec': 1},
+                          TRAIN_STEPS)
         others = sorted(set(counts) - {'pool2_fwd', 'pool2_fwd_vec',
                                        'pool2_bwd', 'dice_sums',
-                                       'dice_sums_vec'})
+                                       'dice_sums_vec', 'adam', 'adam_vec'})
         checks.check('disk runs no other kernel', not others,
                      f'other launches: {others}')
         record_path(res, 'disk', counts, PATH_RUNS['disk'][1])
@@ -3547,7 +3628,8 @@ def dp_rank(rank, world, outdir):
     ar_ms = wall_ms(lambda: dist.all_reduce(flat, group=group), reps=10)
     out.update(losses=losses, step_ms=1e3 * statistics.median(
         times[WARMUP_STEPS:]), times=times, counts=counts, peak=peak,
-        allreduce_ms=ar_ms, allreduce_bytes=flat.numel() * flat.element_size())
+        allreduce_ms=ar_ms, allreduce_bytes=flat.numel() * flat.element_size(),
+        adam=adam_per_step(state.optimizer))
     return out
 
 
@@ -3648,6 +3730,8 @@ def phase_dp(checks, res, card):
                      all(np.isfinite(out['losses'])),
                      ' '.join(f'{v:.6f}' for v in out['losses']))
         check_step_counts(checks, f'{tag} bf16', out['counts'], per_step,
+                          TRAIN_STEPS)
+        check_adam_counts(checks, f'{tag} bf16', out['counts'], out['adam'],
                           TRAIN_STEPS)
         check_vec_bodies(checks, f'{tag} bf16', out['counts'])
         share = out['allreduce_ms'] / out['step_ms']
@@ -3918,6 +4002,7 @@ def space_flagship(rank, mesh, out):
                                                      (batch, gen))
     out['a'] = dict(losses=losses, times=times, counts=counts, peak=peak,
                     step_ms=1e3 * statistics.median(times[WARMUP_STEPS:]),
+                    adam=adam_per_step(state.optimizer),
                     gathered=dict(psp.gathered),
                     staged=dict(pmesh.host_staged),
                     halo_convs=sum(isinstance(m, Conv)
@@ -3987,6 +4072,7 @@ def space_lc(rank, mesh, out):
     state, m = step(state, batch)
     torch.cuda.synchronize()
     out['b_first'] = dict(counts=dict(_build.launches),
+                          adam=adam_per_step(state.optimizer),
                           gathered=dict(psp.gathered),
                           staged=dict(pmesh.host_staged), loss=float(m['loss']))
     for h in hooks:
@@ -4030,6 +4116,7 @@ def space_lc(rank, mesh, out):
     state, losses, times, counts, peak = timed_steps(step, state, (batch,))
     out['b'] = dict(losses=losses, times=times, counts=counts, peak=peak,
                     step_ms=1e3 * statistics.median(times[WARMUP_STEPS:]),
+                    adam=adam_per_step(state.optimizer),
                     gathered=dict(psp.gathered),
                     staged=dict(pmesh.host_staged),
                     halo_convs=sum(isinstance(m, Conv)
@@ -4129,6 +4216,8 @@ def phase_space(checks, res, card):
                          ' '.join(f'{v:.6f}' for v in run['losses']))
             check_step_counts(checks, f'{tag} {path} bf16', run['counts'],
                               per_step, TRAIN_STEPS)
+            check_adam_counts(checks, f'{tag} {path} bf16', run['counts'],
+                              run['adam'], TRAIN_STEPS)
             checks.check(f'{tag} {path} bf16 K3 launches',
                          run['counts'].get('dice_sums', 0)
                          == per_step.get('dice_sums', 0) * TRAIN_STEPS,
@@ -4170,6 +4259,8 @@ def phase_space(checks, res, card):
                           first['counts'], {'pool2_fwd': 2, 'pool2_bwd': 2,
                                             'lc_fwd': 1, 'lc_dk': 1,
                                             'lc_dx': 1}, 1)
+        check_adam_counts(checks, f'{tag} config #3 first step',
+                          first['counts'], first['adam'], 1)
         for name, ok, detail in out['checks']:
             checks.check(name, ok, detail)
     checks.check('space ranks\' flagship parameters bit-equal to one another',
@@ -4209,6 +4300,153 @@ def phase_examples(checks):
         torch.cuda.synchronize()
         checks.check(f'example {script}', ok(result),
                      f'{result} in {time.perf_counter() - t0:.3f} s')
+
+
+ADAM_LR = 1e-3
+
+
+def adam_leaves(model):
+    """Fresh leaves of `model`'s parameters' shapes and dtypes on the card,
+    each with a gradient: normal draws of one card generator."""
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    leaves = []
+    for p in model.parameters():
+        leaf = torch.randn(p.shape, generator=gen,
+                           device='cuda').to(p.dtype).requires_grad_()
+        leaf.grad = torch.randn(p.shape, generator=gen,
+                                device='cuda').to(p.dtype)
+        leaves.append(leaf)
+    return leaves
+
+
+def adam_agree(a, b):
+    """(ok, max abs err, share of elements apart) of K11's tensor a
+    against the plain version's b after one step from the same state:
+    float32 within rtol 1e-6 and atol 1e-7 (the card fuses multiply-adds
+    in K11 and multiplies by 1 / sqrt(1 - b2^t) where the plain version
+    divides); bfloat16, the same float32 values rounded once, apart on at
+    most 1e-3 of the elements (values that straddle a rounding boundary),
+    by one ulp or, where m cancels towards 0, by at most 1e-6, far under
+    a bfloat16 ulp of its terms."""
+    err = max_abs_err(a, b)
+    share = float((a != b).float().mean())
+    if a.dtype == torch.float32:
+        return torch.allclose(a, b, rtol=1e-6, atol=1e-7), err, share
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2. ** -126)
+    apart = (a - b).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    near = (apart <= 1) | ((a - b).abs() <= 1e-6)
+    return bool(near.all()) and share <= 1e-3, err, share
+
+
+def adam_step_ms(fn):
+    """(device ms of one fn() call, K11 events a call): the profiler's
+    durations of every device event (`events_by_name`), and how many of
+    them are K11's (None where the profiler recorded no count)."""
+    ev = events_by_name(fn)
+    k11 = [n for name, (_, n) in ev.items() if 'adam_fused_kernel' in name]
+    return (sum(ms for ms, _ in ev.values()),
+            None if None in k11 else round(sum(k11)))
+
+
+def phase_adam(checks, res):
+    print('== 32. Adam: K11 vs its plain version, torch.optim.Adam fused '
+          '(library) and foreach (the earlier form)', flush=True)
+    # K11's launches a step: config #3's float32 trunk and bfloat16 head,
+    # the flagship's float32 leaves each by the 'vec' body; SynthStrip's 54
+    # float32 leaves in one launch with a 1-element bias, so the scalar body
+    # runs beside the 'vec' one
+    cases = (('config #3', lambda: config3(LC_VOL, torch.bfloat16),
+              {'adam': 2, 'adam_vec': 2, 'adam_scalar': 0}),
+             ('flagship', flagship,
+              {'adam': 1, 'adam_vec': 1, 'adam_scalar': 0}),
+             ('SynthStrip', lambda: synthstrip(VOL),
+              {'adam': 1, 'adam_vec': 0, 'adam_scalar': 1}))
+    for label, make, want in cases:
+        per_step = want['adam']
+        leaves = adam_leaves(make())
+        numel = sum(p.numel() for p in leaves)
+        nbytes = sum(7 * p.numel() * p.element_size() for p in leaves)
+        bound = bound_ms(nbytes, 12. * numel)[0]
+        print(f'  {label}: {len(leaves)} leaves, {numel} parameters '
+              f'({", ".join(sorted({str(p.dtype) for p in leaves}))}), '
+              f'{nbytes} bytes a step read and written once, bound '
+              f'{bound:.4f} ms', flush=True)
+        opt = adam.Adam(leaves, lr=ADAM_LR)
+        twins = [(p.detach().clone(), torch.zeros_like(p), torch.zeros_like(p))
+                 for p in leaves]
+        _build.launches.clear()
+        ok, err, share = True, 0., 0.
+        for t in range(1, 4):
+            # the plain version steps from K11's state: one step's gap
+            for p, (q, m, v) in zip(leaves, twins):
+                q.copy_(p.detach())
+                if t > 1:
+                    m.copy_(opt.state[p]['exp_avg'])
+                    v.copy_(opt.state[p]['exp_avg_sq'])
+            opt.step()
+            for p, (q, m, v) in zip(leaves, twins):
+                adam._adam_plain(q, p.grad, m, v, float(t), ADAM_LR, 0.9,
+                                 0.999, 1e-8)
+                s = opt.state[p]
+                for a, b in ((p.detach(), q), (s['exp_avg'], m),
+                             (s['exp_avg_sq'], v)):
+                    good, e, sh = adam_agree(a, b)
+                    ok, err, share = ok and good, max(err, e), max(share, sh)
+        torch.cuda.synchronize()
+        ran = {k: _build.launches[k] for k in want}
+        checks.check(f'adam {label} launches',
+                     ran == {k: 3 * n for k, n in want.items()},
+                     f'{ran} in 3 steps (expected {want} a step)')
+        checks.check(f'adam {label}: K11 vs plain, 3 steps', ok,
+                     f'max abs err {err:.4g}, largest share of a tensor '
+                     f'apart {share:.3g} (each step from the same '
+                     f'state; float32 rtol 1e-6, atol 1e-7; bfloat16 one '
+                     f'ulp or 1e-6 on at most 1e-3)')
+        del twins
+        plain_state = [(torch.zeros_like(p), torch.zeros_like(p))
+                       for p in leaves]
+
+        def plain():
+            for p, (m, v) in zip(leaves, plain_state):
+                adam._adam_plain(p.detach(), p.grad, m, v, 1., ADAM_LR, 0.9,
+                                 0.999, 1e-8)
+        forms = {'K11': opt.step,
+                 'foreach': torch.optim.Adam(leaves, lr=ADAM_LR,
+                                             foreach=True).step}
+        turns = {k: [] for k in forms}
+        for k in ('foreach', 'K11', 'K11', 'foreach'):   # in turns
+            turns[k].append((*adam_step_ms(forms[k]), call_ms(forms[k])))
+        library = torch.optim.Adam(leaves, lr=ADAM_LR, fused=True)
+        lib_ms, _ = adam_step_ms(library.step)
+        p_ms, _ = adam_step_ms(plain)
+        # a reading whose K11 events the profiler did not all record is
+        # left out
+        valid = [ms for ms, n, _ in turns['K11'] if n == per_step]
+        k_ms = statistics.mean(valid) if valid else None
+        print(f'  adam {label}, device ms of a step (K11 events a step; one '
+              f'call with its host launch): '
+              + '; '.join(f'{k} {ms:.4f} ({n}; {c:.4f})'
+                          for k in ('foreach', 'K11')
+                          for ms, n, c in turns[k])
+              + f'; fused torch.optim.Adam (library) {lib_ms:.4f}; '
+              f'plain {p_ms:.4f}; bound {bound:.4f}', flush=True)
+        if k_ms is None:
+            print(f'  adam {label}: K11 not measured (the profiler recorded '
+                  f'other than {per_step} K11 event(s) a step)')
+        else:
+            print(f'  adam {label}: K11 {k_ms:.4f} ms at '
+                  f'{100 * bound / k_ms:.1f} % of its bound, {per_step} '
+                  f'launch(es) a step'
+                  + (f' (its {nbytes} bytes stay in the {L2_BYTES:.0f}-byte '
+                     f'L2 when timed back to back)' if nbytes < L2_BYTES
+                     else ''), flush=True)
+        if label == 'config #3':
+            res['adam'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                               library_ms=lib_ms)
+            add_bound(res['adam'], nbytes, 12. * numel)
+        del opt, forms, library, plain_state, leaves
+        torch.cuda.empty_cache()
 
 
 def report_profile(label, fn, first, calls=PROFILE_STEPS):
@@ -4293,6 +4531,7 @@ def main(argv=None):
         '29': lambda: phase_halo(checks, res, card),
         '30': lambda: phase_space(checks, res, card),
         '31': lambda: phase_examples(checks),
+        '32': lambda: phase_adam(checks, res),
     }
     for name, fn in phases.items():
         if name in run:
@@ -4318,8 +4557,10 @@ def main(argv=None):
           f'interpolations, 2 blurs of [3, 64^3] (41 taps) and one each of '
           f'[1, 128^3] (165 and 7 taps; library: three conv3d calls but for '
           f'7 taps), one LC call each at the config #3 head (bf16), one MI '
-          f'histogram call at [1, 128^3] with 16 bins; K1-K3 launches are '
-          f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 config #3\'s, '
+          f'histogram call at [1, 128^3] with 16 bins, one Adam step (K11) '
+          f'at config #3\'s leaves; K1-K3 launches are '
+          f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 and K11 '
+          f'config #3\'s, '
           f'K10 the MI registration run\'s; `paths` gives K1, K2, K4 and K6 '
           f'launches on the SynthStrip run (phase 17), K1 and K2 on the '
           f'config #4 run (phase 19), K1-K3 on the space_to_depth and '

@@ -25,6 +25,8 @@ the kernel.
         K7 (forward), K8 (dk) and K9 (dx) (`lc_cuda.py`).
     mi_histograms — the fused soft-quantize + MI joint histogram
         (`mi_hist.py`); its kernel route runs K10 (`mi_hist_cuda.py`).
+    adam.Adam — `torch.optim.Adam`'s update and state, a CUDA group of
+        parameters in one pass of K11 (`adam.py`); `training.adam` builds it.
 """
 
 from neurite_tpu_torch.ops.pool import max_pool  # noqa: F401

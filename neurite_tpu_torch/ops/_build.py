@@ -57,6 +57,8 @@ _SIGNATURES = {
     'neurite_lc_dx': [_vp, _vp, _vp, _i64p, _int, _int, _int, _int, _vp],
     'neurite_mi_hist_f32': [_vp] * 8 + [_i64, _i64, _int, _int, _f32, _vp,
                                         _f32, _f32, _int, _int, _vp],
+    'neurite_adam_f32': [_vp] * 6 + [_int] + [_f32] * 6 + [_vp],
+    'neurite_adam_bf16': [_vp] * 6 + [_int] + [_f32] * 6 + [_vp],
 }
 
 

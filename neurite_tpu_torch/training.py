@@ -15,14 +15,18 @@ import numpy as np
 import torch
 
 from neurite_tpu_torch import checkify, trace
+from neurite_tpu_torch.ops import adam as ops_adam
 
 
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
-    """optax.adam counterpart: a factory params -> torch.optim.Adam. Its
-    update is optax's m_hat / (sqrt(v_hat) + eps), up to rounding."""
+    """optax.adam counterpart: a factory params -> `ops.adam.Adam`, which
+    computes `torch.optim.Adam`'s update (optax's m_hat / (sqrt(v_hat) +
+    eps), up to rounding) and keeps its state, in one pass of the kernel
+    K11 for CUDA parameters. CUDA parameters must be float32 or bfloat16:
+    K11 raises on any other dtype, where `torch.optim.Adam` takes it."""
     def make(params):
-        return torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2),
-                                eps=eps)
+        return ops_adam.Adam(params, lr=learning_rate, betas=(b1, b2),
+                             eps=eps)
     return make
 
 
