@@ -2,7 +2,7 @@
 Smoke test of the PyTorch/CUDA port (`neurite_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py                      # every phase
-    python3 chip_smoke.py --phases 1,2,10,13   # only the phases named
+    python3 chip_smoke.py --phases 1,2,24,25   # only the phases named
 
 Drives the port's paths through their public entry points: the
 flagship 3-D UNet training step (nb_features=16, nb_levels=4, feat_mult=2,
@@ -23,62 +23,40 @@ flagship trained data-parallel over ranks (`parallel.create_mesh`,
 `parallel` at config #3's and config #5's widths, the whole flagship and
 config #3's model partitioned along z over ranks
 (`make_sharded_train_step` on a 'space' mesh), and the six
-`examples_torch` scripts; and checks every hand-written kernel on them
-against its plain PyTorch version, each path's launch counts set to 0 just
-before it and read just after. Every path that trains steps through
+`examples_torch` scripts; and counts every hand-written kernel's launches
+and bodies on them exactly, each path's launch counts set to 0 just before
+it and read just after. Every path that trains steps through
 `training.adam`, so each also checks K11's launches (Adam): exactly
 `adam_per_step`'s a step, one for each run of up to 64 leaves of one
 dtype, by the 'vec' body unless a leaf's length is ragged; a plain twin
-launches those and nothing else. Phases (phase
-1 runs whatever --phases names):
+launches those and nothing else.
+
+Each on-card job has one home. The kernels against their plain versions
+are the card tests, which import no JAX (phase 33 runs them here):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_*_cuda.py
+
+The four paths with a cell (the flagship's step, config #3's, SynthStrip's
+and the serve path) are timed by the benchmark, `python3 h100bench/run.py
+--workload <cell>`; their phases here (6, 12, 17, 24) check losses,
+launches and syncs and time nothing. The paths without a cell keep their
+timings here. The phases, in the order they run (phase 1 runs whatever
+--phases names; 3, 4, 7, 8, 10, 13 and 32, the kernels' checks, are the
+card tests `tests/test_torch_{pool,dice,warp,blur,lc,mi,adam}_cuda.py`):
 
   1. device: the card, its power limit, the torch and CUDA versions;
   2. build: nvcc builds the kernels (`neurite_tpu_torch/ops/csrc`);
-  3. pool: K1/K2 vs the plain pool at the flagship's three pool shapes,
-     config #3's two ([1, 160^3, 8], [1, 80^3, 16]), the space_to_depth=2
-     flagship's three ([1, 64^3, 16], [1, 32^3, 32], [1, 16^3, 64]),
-     C = 7 and misaligned
-     views of the flagship's shapes, float32 and bfloat16, on
-     half-quantized inputs (ties) with a NaN window: forward and dx must be
-     bit-equal (NaN positions equal, every other bit equal), each K1 check
-     naming the body `pool_cuda.plan` picks ('vec' at the path shapes,
-     counted in `pool2_fwd_vec`; 'scalar' at C = 7 and on the views), each
-     K1 time beside its own bound and whether its bytes stay in L2 when
-     timed back to back;
-  4. Dice: K3 vs the plain sums at the flagship's (1, 128^3, 4), config
-     #5's (1, 128^3, 16), (2, 1000, 3), (3, 17, 299), (3, 17, 300) and a
-     misaligned view of (1, 128^3, 4): each within rtol 1e-5 (another
-     summation order), two calls bit-equal, by the body `dice_red.plan`
-     picks ('vec', one device launch a call, counted in `dice_sums_vec`;
-     'scalar', two), each time beside its bound and by kernel name;
+ 33. the card tests (`tests/test_torch_*_cuda.py`, `pytest -m cuda`) in
+     this process: every kernel against its plain version at its paths'
+     shapes, its bodies and its launch counts; any failed case fails the
+     phase;
   5. one float32 step through the kernels and one through the plain versions
      from the same weights (TF32 off, deterministic cuDNN): losses within
      rtol 1e-5, each gradient within 1e-4 of its largest magnitude (the Dice
      sums' order is the only difference);
   6. 10 bfloat16 training steps: finite losses, launch counts of K1, K2,
      K3 and K11 (Adam, one launch a step) exactly those of 10 steps, every
-     K1, K3 and K11 launch by its 'vec' body,
-     median step time, vol/s, peak memory; a profile of 3 more steps;
-  7. interpolation: K4 vs the plain gather chain at the synthesis path's
-     shapes ([1, 64^3, 3] linear under a smooth +-8 voxel field and under
-     the same field shifted by 20 voxels; [1, 128^3, 1] nearest with fill 0
-     at half-integer ties), the registration step's ([1, 128^3, 1] linear,
-     field within +-3), P odd ([63, 65, 67] points) and fill with 86 % of
-     the points out of range: linear within 1e-5, nearest bit-equal; each
-     case by the 'vec' body `warp_cuda.plan` picks (counted in
-     `interpn_vec`), bit-equal to the 'scalar' body on the same inputs and
-     to itself on a misaligned view of loc, each timed beside its bound;
-     K4's gradient vs plain autograd at 32^3;
-  8. blur: K6 vs the plain per-axis convs at [3, 64^3] with 41 taps and
-     [1, 128^3] with 165 and 7 taps: forward within 1e-5 of max|y|, dx
-     within 1e-5 and the tap gradients within 1e-4 of their largest
-     magnitude (sums over up to 2M products in other orders); each of the
-     9 distinct axis passes alone within 1e-5 of max|y|, by the 'whole'
-     body (`blur_cuda.plan`, counted in `blur_whole`), with its ms beside
-     its own bound; one pass each at ragged shapes (L and the columns not
-     multiples of 8 or 32, post 1 with 105 rows, one tap, 165 taps on a
-     20-voxel axis) and by the 'halo' body (a 4096-voxel axis; 1001 and
-     6143 taps in chunks), each check naming the body that ran;
+     K1, K3 and K11 launch by its 'vec' body;
   9. config #5 (bench.py's synth_rate): `labels_to_image_new(labels_in=
      range(16), out_shape=(128,)*3, one_hot=True)` feeding the bf16 UNet
      (nb_labels=16) for 10 steps of synthesis then train step; finite
@@ -91,34 +69,6 @@ launches those and nothing else. Phases (phase
      Perlin blurs, the squarings, the label warp and the image blur);
      profiles of 3 synthesis calls and of 3 steps (device time by kernel,
      idle share);
- 10. LC: K7 (forward), K8 (dk) and K9 (dx) vs their plain versions at the
-     config #3 head's shapes (x [1, 160^3, 4], weights [1, 108, 160^3],
-     g [1, 160^3, 1]; bfloat16 and float32): equal, each through its row
-     body; at 32^3 with 2 filters and batch 3, in both weight layouts:
-     equal, by the one-voxel bodies; at batch 1: [1, 15, 17, 19, 4]
-     (W = 19: the one-voxel bodies), [1, 16, 17, 24, 4] (the row bodies, V
-     a multiple of 8 but not of 8 x 256: a ragged last block), [1, 16, 17,
-     18, 4] 'valid' (K7's and K8's row bodies without padding, K9's
-     one-voxel body) and [1, 32^3, 4] with 2 filters (the row bodies'
-     filter loops), bf16 and f32: equal. Each check names the body that
-     ran, from the launch counts (`lc_fwd_row`, `lc_dk_row`, `lc_dx_row`).
-     The keras layout: K7, K8 and K9 at 32^3 with 2 filters and batch 3
-     (the one-voxel bodies); at the batch-1 shapes above each by its keras
-     row body at one filter (counted in `lc_fwd_keras_row`,
-     `lc_dk_keras_row`, `lc_dx_keras_row`; K9's at 'same' only, with and
-     without rounded products), its one-voxel body at 2, each equal to
-     plain and K7's and K9's to their one-voxel bodies too; K7's and K9's
-     keras row bodies with kernels (5, 2, 3), (3, 3, 2) and (11, 3, 3)
-     (K7's one-voxel body in float32 there), equal to both; and all three
-     through `lc3d_pallas` (the v1 semantics, bf16 products rounded in dx)
-     at [160^3, 4], forward and both gradients: equal, each by its keras
-     row body once (no row-body launch), each bit-equal to its one-voxel
-     body too; there each keras row body timed twice beside its one-voxel
-     body (and faster than it), its bound and the read or write probe.
-     Bandwidth probes: the card's read rate for the weights' bytes
-     (`w.sum(dtype=float32)` at [1, 108, 160^3] bf16) beside K7 and K9, K7
-     timed twice, and its write rate for dk's
-     (`torch.empty_like(dk).zero_()`) beside K8;
  11. one float32 config #3 step at 64^3 through the kernels and one through
      the plain versions from the same weights (TF32 off, deterministic
      cuDNN): losses within rtol 1e-5, each gradient within 1e-4 of its
@@ -130,22 +80,7 @@ launches those and nothing else. Phases (phase
      launch counts of K1, K2, K7-K9 and K11 (2 a step: the trunk's float32
      group and the head's bfloat16 one) exactly those of 10 steps, each of
      K7-K9 by its row body every step (`lc_fwd_row`, `lc_dk_row`,
-     `lc_dx_row`), each K1 and K11 launch by its 'vec' body,
-     median step ms, vol/s, peak memory; a profile of 3
-     steps;
- 13. MI histograms: K10 vs the plain forward at the path's [1, 128^3] with
-     16 bins and centers from the data, at [2, 1000], [1, 128^3 + 37], 8
-     bins clipped to [0, 1] on inputs in [-1, 2], with one NaN voxel, and at
-     [1, 64^3] with 5 and 17 bins (pair tiles of 4 x 4 that do not divide
-     them), 65 and 128 bins and [1, 32^3] with 1024 (past one 64-bin chunk;
-     fewer blocks at 1024, for the scratch): within 1e-5 of the largest
-     magnitude, NaN where the plain version has it, two calls bit-equal,
-     each by the 'tiled' body (`mi_hist_tiled`); alpha as a CUDA 0-d tensor,
-     through the wrapper and `ops.mi_histograms(impl='pallas')`, under
-     CUDA's sync debug mode 'error': no host sync, bit-equal to the float-
-     alpha call; `MIHistograms`' dx and dy on the K10 route vs the plain
-     forward; K10's time by its two launches; the materialized route's time
-     (two soft_quantize maps and a bmm) as context;
+     `lc_dx_row`), each K1 and K11 launch by its 'vec' body;
  14. one MI registration step at 64^3 (the field at +-2 voxels) on the card
      (K4, K10) and on the CPU (plain forms), both on the kernel route
      (`volumes_fused(impl='pallas')`): losses within rtol 1e-5, the field
@@ -173,9 +108,7 @@ launches those and nothing else. Phases (phase
      steps at 128^3, the synthesis drawn anew each step: finite losses,
      launch counts of K1, K2, K4 and K6 exactly those of 10 steps, each K1
      and K4 launch by the 'vec' body and each K6 launch by the 'whole' body
-     that their choosers pick (printed per shape); median step ms, vol/s,
-     peak memory, the synthesis ms by CUDA events, no host sync in the
-     synthesis, profiles of 3 synthesis calls and of 3 steps (idle share);
+     that their choosers pick; no host sync in the synthesis;
  18. one f32 config #4 step at 64^3 (enc_size (4, 4, 4, 16)) through the
      kernels (K1, K2 3 each) and one through the plain pools from the same
      weights and one `SampleNormalLogVar` draw: losses within rtol 1e-5,
@@ -239,8 +172,7 @@ launches those and nothing else. Phases (phase
      mean accumulated in bf16): launches exactly K1 81 a volume, all by
      its 'vec' body, and no other kernel; the prediction [256^3, 4] bf16,
      finite, its labels' probabilities summing to 1 within 2e-2; no host
-     sync; ms per volume (median of 3 after a warm-up), patches/s, peak
-     memory, a profile of one volume (idle share); bit-equal to the same
+     sync; bit-equal to the same
      run with pool_impl='plain' (which launches nothing); with stride =
      patch size `quilt_device` of `patch_gen` returns the volume bit for
      bit; `quilt_device` of the 27 predictions in f32 within 1e-6
@@ -325,44 +257,27 @@ launches those and nothing else. Phases (phase
      16, 128^3) within 1e-5 of max |y| (TF32 off); launches exactly K7,
      K8, K9 1, K4 2, K6 6, K3 1 a rank; each op's host ms a rank (both
      ranks at once) beside the unsharded op's on one rank alone.
- 32. Adam: K11 (`ops/csrc/adam.cu`) at config #3's leaves (the trunk's
-     float32, the head's kernel and bias bfloat16; 2 launches a step, by
-     the 'vec' body), the flagship's (float32; 1, 'vec') and SynthStrip's
-     (54 float32 leaves, one of 1 element; 1, 'scalar'), each leaf drawn
-     on the card with a gradient: 3 steps against the plain version on
-     clones, each step from K11's state (float32 within rtol 1e-6, atol
-     1e-7; bfloat16 apart on at most 1e-3 of the elements, by one ulp or
-     1e-6), the launches and their bodies exactly those; the
-     device ms of a step in turns with foreach torch.optim.Adam (the
-     form before K11: foreach, K11, K11, foreach), each also as one call
-     with its host launch, fused torch.optim.Adam (library_ms, timed here
-     and never called by the port), the plain version and the bound (7
-     bytes a parameter byte over 3.35 TB/s).
+ 30. the flagship and config #3 partitioned along z over a 1 x 2 'space'
+     mesh of 2 gloo ranks on the card (`make_sharded_train_step`): the
+     flagship's f32 step against the unsharded one, 10 bf16 steps of each
+     with exact launches, gathers and host-staged halo exchanges a rank,
+     the head's K7-K9 bit-equal on the block to the unsharded kernels on
+     the gathered inputs; step ms and peak memory a rank beside the
+     unsharded step's;
+ 31. the six `examples_torch` scripts on the card, with
+     `tests/test_examples.py`'s checks of what each returns.
 
-A kernel's, plain version's or library call's ms is its device time: the
-durations of the device events torch.profiler records over 20 calls,
-summed, over 20 (the host's launch time is not in it; "one kernel call"
-lines print the CUDA-event time of a call, which is; where the profiler
-records no event in three tries, CUDA events around the 20 calls, and a
-line before says so). Each kernel's bound
-is the larger of its bytes (each input read once, each output written once)
-over 3.35 TB/s and its operations over the H100's peak for their type
-(float32 outside the tensor cores: 67 TFLOP/s); its `library_ms` is one
-PyTorch call computing the same function, timed here and used nowhere in
-the port.
-
-Prints one line per check, then a JSON line of the kernels (each with its
-path run's launches and body launches, `body_launches`, and in `paths` its
-launches and body launches on the SynthStrip, config #4, space_to_depth,
-remat, serve (one volume), classify (one step) and disk runs, and on the
-data-parallel and halo runs a list, one entry a rank), and last
-`{"ok": true, "device": {...}}`. Any failed check exits non-zero; so does a
-machine without a CUDA device. Run with --phases, a kernel's fields that
-no phase of the run measured are null, and both JSON lines carry the
-phases that ran.
+A step's ms is the host's time to a synchronise; the step parts of phase
+15 are device times from torch.profiler (CUDA events where it records
+nothing), and a path's bound reads the benchmark's rates
+(`h100bench/peaks.json`). Prints one line per check and last `{"ok": true,
+"device": {...}}`; any failed check exits non-zero, and so does a machine
+without a CUDA device. Run with --phases, the last line names the phases
+that ran.
 """
 
 import argparse
+import glob
 import json
 import math
 import os
@@ -383,88 +298,29 @@ from neurite_tpu_torch.layers import sparse
 from neurite_tpu_torch.models.ae import Dense
 from neurite_tpu_torch.models.unet import Conv
 from neurite_tpu_torch.io import tiling
-from neurite_tpu_torch.ops import (_build, adam, blur, blur_cuda, dice_red,
-                                   lc_cuda, mi_hist, mi_hist_cuda, pool,
-                                   pool_cuda, warp_cuda)
+from neurite_tpu_torch.ops import (_build, adam, blur, dice_red, lc_cuda,
+                                   pool_cuda)
 from neurite_tpu_torch.utils import core, seg, spatial
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 VOL = 128
 NB_LABELS = 4
-POOL_SHAPES = [(1, 128, 128, 128, 16), (1, 64, 64, 64, 32), (1, 32, 32, 32, 64)]
-LC_POOL_SHAPES = [(1, 160, 160, 160, 8), (1, 80, 80, 80, 16)]   # config #3
-S2D_POOL_SHAPES = [(1, 64, 64, 64, 16), (1, 32, 32, 32, 32),
-                   (1, 16, 16, 16, 64)]   # the flagship with space_to_depth=2
-L2_BYTES = 50e6     # the H100's L2: a call that moves less stays there
 TRAIN_STEPS = 10
 WARMUP_STEPS = 3
 SYNTH_LABELS = 16
 CHECK_VOL = 64      # the synthesis check against the plain CPU path
 PROFILE_STEPS = 3
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-
-# name: (source, TPU kernel it replaces, the phase that checks and times it,
-# the phase whose path run counts its launches)
-KERNELS = {
-    'pool2_fwd': ('neurite_tpu_torch/ops/csrc/pool.cu',
-                  'neurite_tpu/ops/pool_pallas.py:182', '3', '6'),
-    'pool2_bwd': ('neurite_tpu_torch/ops/csrc/pool.cu',
-                  'neurite_tpu/ops/pool_pallas.py:199', '3', '6'),
-    'dice_sums': ('neurite_tpu_torch/ops/csrc/dice_red.cu',
-                  'neurite_tpu/ops/dice_red.py:60', '4', '6'),
-    'interpn': ('neurite_tpu_torch/ops/csrc/interpn.cu',
-                'neurite_tpu/ops/pallas_warp.py:114 and :302', '7', '9'),
-    'blur': ('neurite_tpu_torch/ops/csrc/blur.cu',
-             'neurite_tpu/ops/blur.py:118', '8', '9'),
-    'lc_fwd': ('neurite_tpu_torch/ops/csrc/lc.cu',
-               'neurite_tpu/ops/pallas_lc2.py:230 and '
-               'neurite_tpu/ops/pallas_lc.py:188', '10', '12'),
-    'lc_dk': ('neurite_tpu_torch/ops/csrc/lc.cu',
-              'neurite_tpu/ops/pallas_lc2.py:263 and '
-              'neurite_tpu/ops/pallas_lc.py:220', '10', '12'),
-    'lc_dx': ('neurite_tpu_torch/ops/csrc/lc.cu',
-              'neurite_tpu/ops/pallas_lc.py:252', '10', '12'),
-    'mi_hist': ('neurite_tpu_torch/ops/csrc/mi_hist.cu',
-                'neurite_tpu/ops/mi_hist.py:90', '13', '15'),
-    'adam': ('neurite_tpu_torch/ops/csrc/adam.cu',
-             'none (the JAX package leaves Adam to optax.adam)', '32', '12'),
-}
-# each kernel's body counters (`_build.launches`): the kernels line gives
-# their counts from the path run beside the kernel's launches
-BODY_COUNTERS = {
-    'pool2_fwd': ('pool2_fwd_vec',), 'pool2_bwd': (),
-    'dice_sums': ('dice_sums_vec',), 'interpn': ('interpn_vec',),
-    'blur': ('blur_whole',), 'lc_fwd': ('lc_fwd_row', 'lc_fwd_keras_row'),
-    'lc_dk': ('lc_dk_row', 'lc_dk_keras_row'),
-    'lc_dx': ('lc_dx_row', 'lc_dx_keras_row'),
-    'mi_hist': ('mi_hist_tiled',), 'adam': ('adam_vec', 'adam_scalar'),
-}
-# the paths that run ported kernels at other shapes: (the phase that counts
-# their launches, the kernels they run); the kernels line gives each
-# kernel's launches on each in `paths`
-PATH_RUNS = {'synthstrip': ('17', ('pool2_fwd', 'pool2_bwd', 'interpn',
-                                   'blur', 'adam')),
-             'vae': ('19', ('pool2_fwd', 'pool2_bwd', 'adam')),
-             's2d': ('22', ('pool2_fwd', 'pool2_bwd', 'dice_sums', 'adam')),
-             'remat': ('23', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
-                              'adam')),
-             'serve': ('24', ('pool2_fwd',)),
-             'classify': ('25', ('pool2_fwd', 'pool2_bwd', 'adam')),
-             'disk': ('26', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
-                             'adam')),
-             # per rank: a list, one entry a rank
-             'dp': ('28', ('pool2_fwd', 'pool2_bwd', 'dice_sums', 'adam')),
-             'halo': ('29', ('dice_sums', 'interpn', 'blur', 'lc_fwd',
-                             'lc_dk', 'lc_dx')),
-             'space': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
-                              'adam')),
-             'space_lc': ('30', ('pool2_fwd', 'pool2_bwd', 'dice_sums',
-                                 'lc_fwd', 'lc_dk', 'lc_dx', 'adam'))}
-MEASURED = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')
-PHASES = ('1', '2', '3', '4', '5', '6', '7', '8', '9a', '9', '10', '11', '12',
-          '13', '14', '15', '16', '17', '18', '19', '20', '21', '22', '23',
-          '24', '25', '26', '27', '28', '29', '30', '31', '32')
+PHASES = ('1', '2', '33', '5', '6', '9a', '9', '11', '12', '14', '15', '16',
+          '17', '18', '19', '20', '21', '22', '23', '24', '25', '26', '27',
+          '28', '29', '30', '31')
+# the kernel phases that became card tests: the test file holding each
+CARD_TESTS = {'3': 'tests/test_torch_pool_cuda.py',
+              '4': 'tests/test_torch_dice_cuda.py',
+              '7': 'tests/test_torch_warp_cuda.py',
+              '8': 'tests/test_torch_blur_cuda.py',
+              '10': 'tests/test_torch_lc_cuda.py',
+              '13': 'tests/test_torch_mi_cuda.py',
+              '32': 'tests/test_torch_adam_cuda.py'}
 LC_VOL = 160        # config #3's volume
 LC_CHECK_VOL = 64   # its float32 step, kernels vs plain
 LC_KS = (3, 3, 3)
@@ -477,7 +333,6 @@ SYNTHSTRIP = dict(labels_in=range(16), labels_out={l: 1 for l in range(1, 12)},
                   nb_unet_features=[16, 32, 64, 64, 64, 64, 64],
                   nb_unet_conv_per_level=2)
 STRIP_CHECK_VOL = 64    # its step kernels vs plain: the pools go down to 1^3
-STRIP_POOLS = [(128, 16), (64, 32), (32, 64), (16, 64), (8, 64), (4, 64)]
 VAE_CHECK_VOL = 64      # config #4's f32 step, kernels vs plain
 # config #4's sparse VAE (`benchmarks/vae_sparse.py`): d = 128 at 128^3,
 # Adam 1e-4; checked card vs CPU at 32^3 with d = 32
@@ -496,7 +351,6 @@ SERVE_VOL = 256
 SERVE_PATCH = 128
 SERVE_STRIDE = 64
 SERVE_CHECK = (32, 16, 8)
-SERVE_REPS = 3
 CLASSIFY_VOL = 64       # the EncoderNet step, card vs CPU
 STREAM_BATCHES = (2, 3, 1, 4, 2)
 # the flagship from disk: FreeSurfer-style subjects (a uint8 norm.mgz and an
@@ -552,11 +406,11 @@ def device_events(prof):
     return rows
 
 
-def events_by_name(fn, reps=20, warmup=3):
-    """{device event name: (ms, events) of one fn() call}: the durations
-    and the count of the events torch.profiler records over `reps` calls,
-    summed by name, over reps; the count is None where the profiler
-    recorded nothing."""
+def time_ms(fn, reps=20, warmup=3):
+    """Device time of one fn() call in ms: the durations of the device
+    events torch.profiler records over `reps` calls, summed, over reps (the
+    host's time between launches is not in it); where the profiler records
+    no event in three tries, CUDA events around the reps, which hold it."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -568,9 +422,7 @@ def events_by_name(fn, reps=20, warmup=3):
             torch.cuda.synchronize()
         rows = device_events(prof)
         if rows:
-            return {name: (ms / reps, n / reps) for ms, n, name in rows}
-    # none in three tries: CUDA events around the reps (the host's launch
-    # time between the calls is then in it)
+            return sum(ms for ms, _, _ in rows) / reps
     print('  (the profiler recorded no event in three tries: the next time '
           'is by CUDA events around 20 calls)', flush=True)
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -579,90 +431,18 @@ def events_by_name(fn, reps=20, warmup=3):
         fn()
     b.record()
     b.synchronize()
-    return {'all launches (CUDA events; no profiler events)':
-            (a.elapsed_time(b) / reps, None)}
-
-
-def time_by_name(fn, reps=20, warmup=3):
-    """{device event name: ms of one fn() call} (see events_by_name)."""
-    return {k: ms for k, (ms, _) in events_by_name(fn, reps, warmup).items()}
-
-
-def time_ms(fn, reps=20, warmup=3):
-    """Device time of one fn() call in ms: the durations of the device
-    events torch.profiler records over `reps` calls, summed, over reps.
-    The host's time between launches is not in it (see call_ms)."""
-    return sum(time_by_name(fn, reps, warmup).values())
-
-
-def clocks_under(fn, seconds=1.):
-    """(median SM clock MHz, median power W) that nvidia-smi samples every
-    50 ms while fn() runs back to back for about `seconds`; None where it
-    gives no sample. The sampler is stopped before this returns."""
-    smi = subprocess.Popen(
-        ['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
-         '--format=csv,noheader,nounits', '-lms', '50'],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
-            fn()
-            torch.cuda.synchronize()
-    finally:
-        smi.terminate()
-        out, _ = smi.communicate(timeout=30)
-    rows = []
-    for line in out.splitlines():
-        try:
-            rows.append([float(v) for v in line.split(',')[:2]])
-        except ValueError:
-            continue
-    if not rows:
-        return None
-    return tuple(statistics.median(r[k] for r in rows) for k in (0, 1))
-
-
-def call_ms(fn, reps=20, warmup=3):
-    """Median ms of one fn() call by CUDA events around it: the device time,
-    or the host's launch time where that is longer."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nbytes, flops=0.):
     """(least ms, 'bytes' or 'operations'): the larger of bytes over the
-    memory rate and float32 operations over the non-tensor-core peak."""
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_FLOP_PER_S
+    memory rate and float32 operations over the non-tensor-core peak, both
+    the benchmark's (`h100bench/peaks.json`)."""
+    with open(os.path.join(REPO, 'h100bench', 'peaks.json')) as f:
+        peaks = json.load(f)
+    t_bytes = 1e3 * nbytes / peaks['hbm_bytes_per_s']
+    t_ops = 1e3 * flops / peaks['f32_flop_per_s']
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-
-
-def add_bound(r, nbytes, flops=0.):
-    """Add one call's bound to kernel record r (a step's calls sum); its
-    `bound_by` is the kind that sets the larger part of the sum."""
-    t, by = bound_ms(nbytes, flops)
-    r['bound_ms'] += t
-    share = r.setdefault('_bound_share', {})
-    share[by] = share.get(by, 0.) + t
-    r['bound_by'] = max(share, key=share.get)
-
-
-def record_launches(res, name, counts):
-    """Kernel `name`'s launches and body launches in a path run's counts,
-    for the kernels line."""
-    res[name]['launches'] = counts.get(name, 0)
-    res[name]['body_launches'] = {c: counts.get(c, 0)
-                                  for c in BODY_COUNTERS[name]}
 
 
 def bit_equal(a, b):
@@ -779,182 +559,6 @@ def phase_build():
     return lib.build_seconds
 
 
-def misaligned(x):
-    """x copied into a contiguous view whose data pointer is one element
-    past a 16-byte boundary: the kernels' scalar bodies take it."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    v = buf[1:].view(x.shape)
-    v.copy_(x)
-    return v
-
-
-def pool_input(shape, dtype, gen):
-    """Halves (many tied maxima; +0.0 turns -0.0 into +0.0 so that
-    "bit-equal" does not hinge on which signed zero a max returns) with a
-    NaN in the window (0, 1, 1, 2) of channel 1, and a cotangent."""
-    x = torch.round(torch.randn(shape, generator=gen, device='cuda')
-                    * 2) / 2 + 0.
-    x[0, 2, 3, 4, 1] = float('nan')
-    out = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2, shape[4])
-    g = torch.randn(out, generator=gen, device='cuda').to(dtype)
-    return x.to(dtype).contiguous(), g
-
-
-def phase_pool(checks, res):
-    print('== 3. pool K1/K2 vs plain', flush=True)
-    w = (2, 2, 2)
-    gen = torch.Generator(device='cuda').manual_seed(3)
-    # (shape, layout, the K1 body it must take, its role): the flagship's
-    # and config #5's three levels, config #3's two, the space_to_depth=2
-    # flagship's three, then the scalar body at C = 7 and on misaligned
-    # views of the flagship's levels (K1's earlier body, timed beside the
-    # vec body in this call)
-    cases = ([(s, 'contiguous', 'vec', 'flagship') for s in POOL_SHAPES]
-             + [(s, 'contiguous', 'vec', 'config #3') for s in LC_POOL_SHAPES]
-             + [(s, 'contiguous', 'vec', 'flagship s2d')
-                for s in S2D_POOL_SHAPES]
-             + [((1, 32, 32, 32, 7), 'contiguous', 'scalar', 'C = 7')]
-             + [(s, 'misaligned', 'scalar', 'flagship, misaligned')
-                for s in POOL_SHAPES])
-    k1_steps = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape, layout, want, role in cases:
-            x, g = pool_input(shape, dtype, gen)
-            if layout == 'misaligned':
-                x = misaligned(x)
-            _build.launches.clear()
-            yk = pool_cuda.pool2_fwd(x)
-            vec_launches = _build.launches['pool2_fwd_vec']
-            body = pool_cuda.plan(x.shape, x.dtype,
-                                  (x.data_ptr(), yk.data_ptr())).body
-            yp = pool._max_pool_tiled_fwd(x, w)
-            dk = pool_cuda.pool2_bwd(x, g)
-            dp = pool._max_pool_tiled_bwd(x, yp, g, w)
-            torch.cuda.synchronize()
-            tag = f'{str(dtype)[6:]} {shape} {layout}'
-            nan_win = bool(torch.isnan(yk[0, 1, 1, 2, 1]))
-            checks.check(f'pool fwd {tag}', bit_equal(yk, yp) and nan_win
-                         and body == want and vec_launches == (body == 'vec'),
-                         f'body {body!r} (expected {want!r}, counted '
-                         f'pool2_fwd_vec {vec_launches}); nan window kept: '
-                         f'{nan_win}')
-            n_g = int((dk[0, 2:4, 2:4, 4:6, 1] == g[0, 1, 1, 2, 1]).sum())
-            checks.check(f'pool bwd {tag}', bit_equal(dk, dp)
-                         and n_g == 8, f'nan window taps given g: {n_g}/8')
-            n, isz = x.numel(), x.element_size()
-            nbytes = {'pool2_fwd': (n + n // 8) * isz,
-                      'pool2_bwd': (2 * n + n // 8) * isz}
-            k1_ms = time_ms(lambda: pool_cuda.pool2_fwd(x))
-            resident = 'yes' if nbytes['pool2_fwd'] < L2_BYTES else 'no'
-            print(f'  pool2_fwd {tag}: {body} body {k1_ms:.4f} ms, bound '
-                  f'{bound_ms(nbytes["pool2_fwd"])[0]:.4f} ms (bytes '
-                  f'{nbytes["pool2_fwd"]}; L2-resident back to back: '
-                  f'{resident})', flush=True)
-            if dtype == torch.bfloat16 and role.startswith('flagship'):
-                k1_steps[role] = k1_steps.get(role, 0.) + k1_ms
-            if role != 'flagship':
-                continue
-            t = {'pool2_fwd': (k1_ms,
-                               time_ms(lambda: pool._max_pool_tiled_fwd(x, w))),
-                 'pool2_bwd': (time_ms(lambda: pool_cuda.pool2_bwd(x, g)),
-                               time_ms(lambda: pool._max_pool_tiled_bwd(
-                                   x, yp, g, w)))}
-            # yardsticks on the channels-first view (a view, no copy)
-            xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-            _, idx = torch.nn.functional.max_pool3d(xc, 2, return_indices=True)
-            lib = {'pool2_fwd': time_ms(
-                       lambda: torch.nn.functional.max_pool3d(xc, 2)),
-                   'pool2_bwd': time_ms(
-                       lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-                           gc, xc, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1],
-                           False, idx))}
-            calls = {'pool2_fwd': call_ms(lambda: pool_cuda.pool2_fwd(x)),
-                     'pool2_bwd': call_ms(lambda: pool_cuda.pool2_bwd(x, g))}
-            for name, (k_ms, p_ms) in t.items():
-                err = max_abs_err(yk, yp) if name == 'pool2_fwd' \
-                    else max_abs_err(dk, dp)
-                r = res[name]
-                r['max_abs_err'] = max(r['max_abs_err'], err)
-                if dtype == torch.bfloat16:  # the training step's type
-                    r['ms'] += k_ms
-                    r['plain_ms'] += p_ms
-                    r['library_ms'] += lib[name]
-                    add_bound(r, nbytes[name])
-                print(f'  {name} {tag}: kernel {k_ms:.4f} ms, plain '
-                      f'{p_ms:.4f} ms, library {lib[name]:.4f} ms, bound '
-                      f'{bound_ms(nbytes[name])[0]:.4f} ms; one kernel call '
-                      f'{calls[name]:.4f} ms', flush=True)
-    print('  K1 over the flagship\'s three bf16 levels: '
-          + ', '.join(f'{role} {ms:.4f} ms' for role, ms in k1_steps.items())
-          + ' (the misaligned views take the scalar body)', flush=True)
-
-
-def phase_dice(checks, res):
-    print('== 4. Dice sums K3 vs plain', flush=True)
-    gen = torch.Generator(device='cuda').manual_seed(4)
-    # (shape, layout, the K3 body it must take): the flagship's L = 4 (the
-    # path), config #5's L = 16, L = 3 and 299 (scalar), 300 (vec: a
-    # multiple of 4), and the flagship's shape on misaligned views (the
-    # earlier two-launch body, each launch timed by name)
-    cases = [((1, VOL ** 3, NB_LABELS), 'contiguous', 'vec'),
-             ((1, VOL ** 3, SYNTH_LABELS), 'contiguous', 'vec'),
-             ((2, 1000, 3), 'contiguous', 'scalar'),
-             ((3, 17, 299), 'contiguous', 'scalar'),
-             ((3, 17, 300), 'contiguous', 'vec'),
-             ((1, VOL ** 3, NB_LABELS), 'misaligned', 'scalar')]
-    for shape, layout, want in cases:
-        x = torch.softmax(torch.randn(shape, generator=gen, device='cuda'), -1)
-        lab = torch.randint(0, shape[2], shape[:2], generator=gen,
-                            device='cuda')
-        y = torch.nn.functional.one_hot(lab, shape[2]).float()
-        if layout == 'misaligned':
-            x, y = misaligned(x), misaligned(y)
-        body = dice_red.plan(*shape, (x.data_ptr(), y.data_ptr())).body
-        _build.launches.clear()
-        k = dice_red.dice_sums_cuda(x, y)
-        vec_launches = _build.launches['dice_sums_vec']
-        again = dice_red.dice_sums_cuda(x, y)
-        p = dice_red._dice_sums_plain(x, y)
-        torch.cuda.synchronize()
-        tag = f'{shape} {layout}'
-        ok = all(torch.allclose(a, b, rtol=1e-5, atol=0.) for a, b in zip(k, p))
-        err = max(max_abs_err(a, b) for a, b in zip(k, p))
-        rel = max(rel_err(a, b) for a, b in zip(k, p))
-        same = all(torch.equal(a, b) for a, b in zip(k, again))
-        checks.check(f'dice sums {tag}', ok and same and body == want
-                     and vec_launches == (body == 'vec'),
-                     f'body {body!r} (expected {want!r}, counted '
-                     f'dice_sums_vec {vec_launches}); max abs err {err:.6g}, '
-                     f'over the largest sum {rel:.3g} (each sum within rtol '
-                     f'1e-5); two calls bit-equal: {same}')
-        events = events_by_name(lambda: dice_red.dice_sums_cuda(x, y))
-        counts = [n for _, n in events.values()]
-        per_call = None if None in counts else sum(counts)
-        if body == 'vec':
-            # a count the profiler did not record is reported, not failed
-            checks.check(f'dice sums {tag} device launches a call',
-                         per_call in (1, None),
-                         'not measured (no profiler events)'
-                         if per_call is None else f'{per_call:g} (1)')
-        k_ms = sum(ms for ms, _ in events.values())
-        nbytes = (2 * x.numel() + 3 * shape[0] * shape[2]) * 4
-        bound = bound_ms(nbytes, 6 * x.numel())[0]
-        print(f'  dice_sums {tag}: {body} body {k_ms:.4f} ms, bound '
-              f'{bound:.4f} ms, device launches a call {per_call}; by name: '
-              + ', '.join(f'{name[:40]} {ms:.4f} ms'
-                          for name, (ms, _) in events.items()), flush=True)
-        if shape != (1, VOL ** 3, NB_LABELS) or layout != 'contiguous':
-            continue
-        p_ms = time_ms(lambda: dice_red._dice_sums_plain(x, y))
-        res['dice_sums'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                library_ms=None)
-        # x and y read once, three [1, L] sums written; a multiply-add a sum
-        add_bound(res['dice_sums'], nbytes, 6 * x.numel())
-        c_ms = call_ms(lambda: dice_red.dice_sums_cuda(x, y))
-        print(f'  dice_sums {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} '
-              f'ms; one kernel call {c_ms:.4f} ms', flush=True)
-
-
 def flagship_inputs(vol=VOL):
     """bench.py's inputs: numpy default_rng(0) normal image, random labels."""
     rng = np.random.default_rng(0)
@@ -974,6 +578,17 @@ def flagship(dtype=None, pool_impl='auto', vol=VOL, seed=0, **kw):
         conv_size=3, nb_labels=NB_LABELS, feat_mult=2, nb_conv_per_level=2,
         dtype=dtype, pool_impl=pool_impl,
         generator=torch.Generator().manual_seed(seed), device='cuda', **kw)
+
+
+def phase_card_tests(checks):
+    import pytest
+    print('== 33. the kernels\' card tests', flush=True)
+    files = sorted(glob.glob(os.path.join(REPO, 'tests',
+                                          'test_torch_*_cuda.py')))
+    rc = pytest.main(['--noconftest', '-p', 'no:cacheprovider', '-q',
+                      '-m', 'cuda', *files])
+    checks.check('card tests pass', bool(files) and rc == 0,
+                 f'exit code {int(rc)}, {len(files)} files')
 
 
 def phase_parity(checks, x, y):
@@ -1016,33 +631,22 @@ def phase_parity(checks, x, y):
         restore_flags(flags)
 
 
-def phase_train(checks, res, x, y):
+def phase_train(checks, x, y):
     print(f'== 6. flagship bf16 training, {TRAIN_STEPS} steps', flush=True)
     model = flagship(dtype=torch.bfloat16)
     state = training.create_train_state(model, training.adam(1e-3))
     step = training.make_train_step(
         nt.losses.SoftDice(check_input_limits=False).loss)
     gen = torch.Generator(device='cuda').manual_seed(1)
-    state, losses, times, counts, peak = timed_steps(step, state,
-                                                     ((x, y), gen))
+    state, losses, _, counts, _ = timed_steps(step, state, ((x, y), gen))
     checks.check('training losses finite', all(np.isfinite(losses)),
                  ' '.join(f'{v:.6f}' for v in losses))
-    want = {'pool2_fwd': 3 * TRAIN_STEPS, 'pool2_bwd': 3 * TRAIN_STEPS,
-            'dice_sums': TRAIN_STEPS}
-    for name, n in want.items():
-        got = counts.get(name, 0)
-        checks.check(f'launches {name}', got == n and got > 0,
-                     f'{got} (expected {n})')
-        record_launches(res, name, counts)
+    check_step_counts(checks, 'flagship', counts,
+                      {'pool2_fwd': 3, 'pool2_bwd': 3, 'dice_sums': 1},
+                      TRAIN_STEPS)
     check_vec_bodies(checks, 'flagship', counts)
     check_adam_counts(checks, 'flagship', counts,
                       adam_per_step(state.optimizer), TRAIN_STEPS)
-    report_steps('flagship', times, peak)
-    try:
-        report_profile('flagship step',
-                       lambda i: step(state, (x, y), gen), TRAIN_STEPS)
-    except Exception as e:  # noqa: BLE001  (a reading, not a check)
-        print(f'  flagship profile not measured: {type(e).__name__}: {e}')
 
 
 def check_vec_bodies(checks, path, counts):
@@ -1099,284 +703,6 @@ def smooth_field(shape, amp, gen):
     return f * (amp / f.abs().max())
 
 
-def grid_sample_call(vol, loc, method):
-    """F.grid_sample on `vol` [B, D, H, W, C] at voxel coordinates `loc`
-    [B, *out, 3]: the layout permutation is made here, outside the timed
-    call it returns."""
-    shape = torch.tensor(vol.shape[1:4], dtype=torch.float32, device='cuda')
-    g = (loc / (shape - 1) * 2 - 1).flip(-1).contiguous()    # (x, y, z)
-    v = vol.permute(0, 4, 1, 2, 3).contiguous()
-    mode = 'bilinear' if method == 'linear' else 'nearest'
-    return lambda: torch.nn.functional.grid_sample(
-        v, g, mode=mode, padding_mode='border', align_corners=True)
-
-
-def phase_interpn(checks, res):
-    print('== 7. interpolation K4 vs plain', flush=True)
-    gen = torch.Generator(device='cuda').manual_seed(7)
-    r = res['interpn']
-    v64 = (64,) * 3
-    field = smooth_field(v64, 8., gen)
-    grid = core.grid_points(v64, 'cuda')[None]
-    vol3 = torch.randn((1, *v64, 3), generator=gen, device='cuda')
-    v128 = (VOL,) * 3
-    lab = torch.randint(0, SYNTH_LABELS, (1, *v128, 1), generator=gen,
-                        device='cuda').float()
-    grid128 = core.grid_points(v128, 'cuda')[None]
-    # every point on a half-integer or integer: the ties of round-half-even
-    loc128 = torch.round(2 * (grid128 + smooth_field(v128, 8., gen))) / 2
-    # the registration step's warp: an image at the grid plus a smooth
-    # field clamped to +-3 voxels, as `batch_transform` calls K4
-    img = torch.rand((1, *v128, 1), generator=gen, device='cuda')
-    loc_reg = grid128 + torch.clamp(smooth_field(v128, 4., gen), -3., 3.)
-    odd = (63, 65, 67)   # P = 274365: a ragged last block
-    loc_odd = core.grid_points(odd, 'cuda')[None] + smooth_field(odd, 8., gen)
-    cases = [  # (name, vol, loc, method, fill, calls per config #5 step,
-               #  calls per registration step)
-        ('64^3 C=3 linear, +-8 field (v2 regime)', vol3, grid + field,
-         'linear', None, 5, 0),
-        ('64^3 C=3 linear, +-8 field + 20 shift (v1 regime)', vol3,
-         grid + field + 20., 'linear', None, 0, 0),
-        ('128^3 C=1 nearest, fill 0, half-integer ties', lab, loc128,
-         'nearest', 0., 1, 0),
-        ('128^3 C=1 linear, registration field within +-3', img, loc_reg,
-         'linear', None, 0, 1),
-        ('[63, 65, 67] points from 64^3 C=3 linear (P odd)', vol3, loc_odd,
-         'linear', None, 0, 0),
-        ('64^3 C=3 linear, fill 2.5, +-8 field + 30 shift (out of range)',
-         vol3, grid + field + 30., 'linear', 2.5, 0, 0),
-    ]
-    reg = {'ms': 0., 'bound': 0.}
-    for name, vol, loc, method, fill, per_step, per_reg in cases:
-        body = warp_cuda.plan(vol, loc)
-        vec0 = _build.launches['interpn_vec']
-        k = warp_cuda.interpn3d(vol, loc, method, fill)
-        counted = _build.launches['interpn_vec'] - vec0
-        # the scalar body on the same inputs
-        s_out = torch.empty_like(k)
-        warp_cuda._launch(vol, loc, s_out, method, fill, 'scalar')
-        # the 'vec' body on a misaligned contiguous view of the same loc
-        loc_m = misaligned(loc)
-        m_out = warp_cuda.interpn3d(vol, loc_m, method, fill)
-        p = core.interpn_plain(vol, loc, method, fill, batched=True)
-        torch.cuda.synchronize()
-        err = max_abs_err(k, p)
-        same = bit_equal(k, s_out) and bit_equal(k, m_out)
-        filled = '' if fill is None else \
-            f'; filled share {float((k == fill).float().mean()):.4f}'
-        ok_body = body == 'vec' and counted == 1
-        if method == 'nearest':
-            ok = bit_equal(k, p)
-            detail = f'bit-equal to plain {ok}'
-        else:
-            ok = err <= 1e-5
-            detail = (f'max abs err {err:.3g} (atol 1e-5); bit-equal to '
-                      f'plain {bit_equal(k, p)}')
-        checks.check(f'interpn {name}', ok and same and ok_body,
-                     f'body {body!r} (vec expected, counted interpn_vec '
-                     f'{counted}); bit-equal to the scalar body and on a '
-                     f'misaligned view: {same}; {detail}{filled}')
-        k_ms = time_ms(lambda: warp_cuda.interpn3d(vol, loc, method, fill))
-        s_ms = time_ms(lambda: warp_cuda._launch(vol, loc, s_out, method,
-                                                 fill, 'scalar'))
-        p_ms = time_ms(lambda: core.interpn_plain(vol, loc, method, fill,
-                                                  batched=True))
-        l_ms = time_ms(grid_sample_call(vol, loc, method))
-        nbytes = (vol.numel() + loc.numel() + k.numel()) * 4
-        b_ms, _ = bound_ms(nbytes)
-        c_ms = call_ms(lambda: warp_cuda.interpn3d(vol, loc, method, fill))
-        print(f'  interpn {name}: {body} body {k_ms:.4f} ms, scalar body '
-              f'{s_ms:.4f} ms, plain {p_ms:.4f} ms, grid_sample '
-              f'{l_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); one kernel call '
-              f'{c_ms:.4f} ms', flush=True)
-        r['max_abs_err'] = max(r['max_abs_err'], err)
-        for _ in range(per_step):   # a synthesis step's calls sum
-            r['ms'] += k_ms
-            r['plain_ms'] += p_ms
-            r['library_ms'] += l_ms
-            add_bound(r, nbytes)
-        reg['ms'] += per_reg * k_ms
-        reg['bound'] += per_reg * b_ms
-    print(f'  K4 a config #5 step (5 linear 64^3 + 1 nearest 128^3): '
-          f'{r["ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms; a registration '
-          f'step (1 linear 128^3): {reg["ms"]:.4f} ms, bound '
-          f'{reg["bound"]:.4f} ms', flush=True)
-
-    # the gradient: K4's autograd function against plain autograd, 32^3
-    v32 = (32,) * 3
-    vol = torch.randn((1, *v32, 3), generator=gen, device='cuda')
-    loc = core.grid_points(v32, 'cuda')[None] + smooth_field(v32, 4., gen)
-    g = torch.randn((1, *v32, 3), generator=gen, device='cuda')
-    grads = []
-    for fn in (lambda v, lc: warp_cuda.interpn3d(v, lc, 'linear', None),
-               lambda v, lc: core.interpn_plain(v, lc, 'linear', None,
-                                                batched=True)):
-        v, lc = vol.clone().requires_grad_(), loc.clone().requires_grad_()
-        grads.append(torch.autograd.grad(fn(v, lc), (v, lc), g))
-    torch.cuda.synchronize()
-    errs = [max_abs_err(a, b) for a, b in zip(*grads)]
-    checks.check('interpn gradient 32^3 (dvol, dloc)', max(errs) <= 1e-5,
-                 f'max abs err {errs[0]:.3g}, {errs[1]:.3g} (atol 1e-5)')
-
-
-def blur_pass_flops(shape, a, width):
-    """Operations one SAME pass of x [N, *spatial] along spatial axis `a`
-    needs: a multiply-add for each tap that falls inside the axis (taps in
-    the zero padding need no work; a 165-tap window on a 128-voxel axis
-    keeps about 112 of its taps per output)."""
-    n, *sp = shape
-    r, i = width // 2, np.arange(sp[a])
-    taps = int((np.minimum(i + r, sp[a] - 1) - np.maximum(i - r, 0)
-                + 1).sum())
-    return 2 * n * (int(np.prod(sp)) // sp[a]) * taps
-
-
-def blur_flops(shape, widths):
-    """Operations of a separable SAME blur: its three passes'."""
-    return sum(blur_pass_flops(shape, a, w) for a, w in enumerate(widths))
-
-
-def blur_body(fn):
-    """(result, K6 body that ran: 'whole' or 'halo') of fn(), one K6
-    launch, read from the launch counts."""
-    before = _build.launches['blur_whole']
-    out = fn()
-    return out, 'whole' if _build.launches['blur_whole'] > before else 'halo'
-
-
-# K6 beyond the path: (shape, axis, taps, body `blur_cuda.plan` gives)
-BLUR_RAGGED = [
-    ((2, 20, 33, 45), 1, 165, 'whole'),   # 165 taps on a 20-voxel axis
-    ((1, 37, 5, 6), 1, 7, 'whole'),       # L and post (30) not of 8 or 32
-    ((3, 7, 5, 29), 3, 41, 'whole'),      # post 1, pre 105, L 29
-    ((2, 6, 5, 11), 2, 1, 'whole'),       # one tap
-    ((1, 4096, 4, 4), 1, 165, 'halo'),    # a long axis: 64-row tiles
-    ((1, 400, 8, 40), 1, 1001, 'halo'),   # taps in chunks, post 320
-    ((1, 4, 4, 300), 3, 6143, 'halo'),    # taps in chunks, post 1
-]
-
-
-def phase_blur(checks, res):
-    print('== 8. blur K6 vs plain', flush=True)
-    gen = torch.Generator(device='cuda').manual_seed(8)
-    r = res['blur']
-    flags = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False   # the plain convs in float32
-    try:
-        cases = [  # (shape, sigma, taps, calls per synthesis step)
-            ((3, 64, 64, 64), 16 / 2.355, 41, 2),
-            ((1, VOL, VOL, VOL), 64 / 2.355, 165, 1),
-            ((1, VOL, VOL, VOL), 1., 7, 1),
-        ]
-        for shape, sigma, width, per_step in cases:
-            x = torch.randn(shape, generator=gen, device='cuda')
-            k1 = core.gaussian_kernel(sigma, windowsize=width, device='cuda')
-            ks = [k1, k1, k1]
-            yk = blur.blur3d(x, ks)
-            yp = blur._plain(x, ks)
-            torch.cuda.synchronize()
-            err = max_abs_err(yk, yp)
-            tol = 1e-5 * float(yp.abs().max())
-            tag = f'{list(shape)} {width} taps'
-            checks.check(f'blur fwd {tag}', err <= tol,
-                         f'max abs err {err:.3g} (limit {tol:.3g})')
-
-            # backward: dx by K6 with flipped taps, taps by plain torch,
-            # against autograd through the plain convs
-            g = torch.randn(shape, generator=gen, device='cuda')
-            grads = []
-            for fn in (blur.blur3d, blur._plain):
-                xi = x.clone().requires_grad_()
-                ki = [k1.clone().requires_grad_() for _ in range(3)]
-                grads.append(torch.autograd.grad(fn(xi, ki), [xi, *ki], g))
-            torch.cuda.synchronize()
-            (dxk, *dkk), (dxp, *dkp) = grads
-            ex = max_abs_err(dxk, dxp) / float(dxp.abs().max())
-            ek = max(max_abs_err(a, b) / float(b.abs().max())
-                     for a, b in zip(dkk, dkp))
-            checks.check(f'blur bwd {tag}', ex <= 1e-5 and ek <= 1e-4,
-                         f'dx {ex:.3g} (limit 1e-5), taps {ek:.3g} (limit '
-                         f'1e-4), relative to the largest magnitude')
-
-            k_ms = time_ms(lambda: blur.blur3d(x, ks))
-            p_ms = time_ms(lambda: blur._plain(x, ks))
-            xc = x[:, None]
-            if width <= 7:   # one conv3d with the outer-product kernel
-                w3 = (k1[:, None, None] * k1[None, :, None]
-                      * k1[None, None, :])[None, None]
-                l_ms = time_ms(lambda: torch.nn.functional.conv3d(
-                    xc, w3, padding=width // 2))
-                lib = 'one conv3d'
-            else:            # three per-axis conv3d calls
-                ws = [k1.reshape(1, 1, -1, 1, 1), k1.reshape(1, 1, 1, -1, 1),
-                      k1.reshape(1, 1, 1, 1, -1)]
-                pads = [(width // 2, 0, 0), (0, width // 2, 0),
-                        (0, 0, width // 2)]
-
-                def three(xc=xc, ws=ws, pads=pads):
-                    y = xc
-                    for w, p in zip(ws, pads):
-                        y = torch.nn.functional.conv3d(y, w, padding=p)
-                    return y
-                l_ms = time_ms(three)
-                lib = 'three conv3d calls'
-            nbytes = 2 * x.numel() * 4 + 3 * width * 4
-            flops = blur_flops(shape, (width,) * 3)
-            b_ms, by = bound_ms(nbytes, flops)
-            c_ms = call_ms(lambda: blur.blur3d(x, ks))
-            print(f'  blur {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, '
-                  f'{lib} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); one '
-                  f'kernel call (3 launches) {c_ms:.4f} ms', flush=True)
-            # each axis pass alone: its ms, its own bound, the body that ran
-            for axis in (1, 2, 3):
-                (ya, body), yb = (blur_body(lambda: blur_cuda.blur_axis(
-                    x, k1, axis)), core.conv_axis(x, k1, axis - 1))
-                torch.cuda.synchronize()
-                ea = max_abs_err(ya, yb)
-                ta = 1e-5 * float(yb.abs().max())
-                checks.check(f'blur pass {tag} axis {axis}',
-                             ea <= ta and body == 'whole',
-                             f'max abs err {ea:.3g} (limit {ta:.3g}), body '
-                             f'{body} (whole expected)')
-                a_ms = time_ms(lambda: blur_cuda.blur_axis(x, k1, axis))
-                ba_ms, ba_by = bound_ms(
-                    2 * x.numel() * 4 + width * 4,
-                    blur_pass_flops(shape, axis - 1, width))
-                print(f'  blur pass {tag} axis {axis} ({body}): kernel '
-                      f'{a_ms:.4f} ms, bound {ba_ms:.4f} ms ({ba_by}), '
-                      f'{ba_ms / a_ms:.1%} of it', flush=True)
-                if width == 165 and axis == 1:
-                    clk = clocks_under(lambda: blur_cuda.blur_axis(
-                        x, k1, axis))
-                    print(f'  SM clock and power under that pass back to '
-                          f'back (nvidia-smi, median): {clk} (MHz, W)',
-                          flush=True)
-            r['max_abs_err'] = max(r['max_abs_err'], err)
-            for _ in range(per_step):   # a synthesis step's calls sum
-                r['ms'] += k_ms
-                r['plain_ms'] += p_ms
-                r['library_ms'] += l_ms
-                add_bound(r, nbytes, flops)
-
-        # shapes beyond the path: ragged lengths and columns, one tap, a
-        # window wider than its axis, the halo tiles and the taps in chunks
-        for shape, axis, width, want in BLUR_RAGGED:
-            x = torch.randn(shape, generator=gen, device='cuda')
-            k1 = torch.rand(width, generator=gen, device='cuda') + .1
-            (yk, body), yp = (blur_body(lambda: blur_cuda.blur_axis(
-                x, k1, axis)), core.conv_axis(x, k1, axis - 1))
-            torch.cuda.synchronize()
-            err = max_abs_err(yk, yp)
-            tol = 1e-5 * float(yp.abs().max())
-            checks.check(f'blur pass {list(shape)} axis {axis} {width} taps',
-                         err <= tol and body == want,
-                         f'max abs err {err:.3g} (limit {tol:.3g}), body '
-                         f'{body} ({want} expected, '
-                         f'{blur_cuda.plan(shape, axis, width)})')
-    finally:
-        torch.backends.cudnn.allow_tf32 = flags
-
-
 def synth_model(vol, device):
     """bench.py's synth_rate generator: every knob at its default."""
     return nt.models.labels_to_image_new(
@@ -1431,7 +757,7 @@ def phase_synth_check(checks):
                  f'farther than 3 from a mismatch')
 
 
-def phase_synth_train(checks, res):
+def phase_synth_train(checks):
     print(f'== 9. config #5: synthesis -> bf16 UNet step, {TRAIN_STEPS} '
           f'steps at {VOL}^3', flush=True)
     lab = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1485,14 +811,10 @@ def phase_synth_train(checks, res):
               and float(img.min()) >= 0 and float(img.max()) <= 1)
     checks.check('config #5 image finite in [0, 1]', img_ok,
                  f'shape {tuple(img.shape)}')
-    per_step = {'interpn': 6, 'blur': 12, 'blur_whole': 12, 'pool2_fwd': 3,
-                'pool2_bwd': 3, 'dice_sums': 1}
-    for name, n in per_step.items():
-        got, want = counts.get(name, 0), n * TRAIN_STEPS
-        checks.check(f'config #5 launches {name}', got == want and got > 0,
-                     f'{got} (expected {n} per step)')
-        if name in ('interpn', 'blur'):
-            record_launches(res, name, counts)
+    check_step_counts(checks, 'config #5', counts,
+                      {'interpn': 6, 'blur': 12, 'blur_whole': 12,
+                       'pool2_fwd': 3, 'pool2_bwd': 3, 'dice_sums': 1},
+                      TRAIN_STEPS)
     check_vec_bodies(checks, 'config #5', counts)
     check_adam_counts(checks, 'config #5', counts,
                       adam_per_step(state.optimizer), TRAIN_STEPS)
@@ -1528,351 +850,6 @@ def phase_synth_train(checks, res):
             report_profile(label, fn, TRAIN_STEPS)
         except Exception as e:  # noqa: BLE001
             print(f'  {label} profile not measured: {type(e).__name__}: {e}')
-
-
-def lc_inputs(gen, batch, vol, chans, filters, dtype):
-    """Normal draws on the card: x [B, vol^3, C] and transposed weights
-    [O, 27*C, vol^3] in `dtype`, and a float32 cotangent g [B, vol^3, O]."""
-    sp = (vol,) * 3
-    x = torch.randn((batch, *sp, chans), generator=gen, device='cuda')
-    k = torch.randn((filters, 27 * chans, vol ** 3), generator=gen,
-                    device='cuda')
-    g = torch.randn((batch, *sp, filters), generator=gen, device='cuda')
-    return x.to(dtype), k.to(dtype), g
-
-
-def lc_calls(x, k, g, keras):
-    """(name, kernel call, plain call) of K7, K8 and K9 on x, the weights k
-    ([V, TC, O] if keras, else [O, TC, V]) and g. With keras, K9 rounds
-    each product to the weights' dtype (the v1 semantics)."""
-    kv, shape = lc_cuda._weight_view(k, keras), tuple(x.shape)
-    return [
-        ('lc_fwd', lambda: lc_cuda.fwd_cuda(x, kv, LC_KS, 'same'),
-         lambda: lc_cuda.fwd_plain(x, kv, LC_KS, 'same')),
-        ('lc_dk', lambda: lc_cuda.dk_cuda(g, x, LC_KS, 'same', k.dtype, keras),
-         lambda: lc_cuda.dk_plain(g, x, LC_KS, 'same', k.dtype, keras)),
-        ('lc_dx', lambda: lc_cuda.dx_cuda(g, kv, LC_KS, 'same', shape,
-                                          x.dtype, keras),
-         lambda: lc_cuda.dx_plain(g, kv, LC_KS, 'same', shape, x.dtype,
-                                  keras)),
-    ]
-
-
-def lc_live_weights(spatial, filters, chans):
-    """Weights of a 'same' 3x3x3 LC conv that multiply an input inside the
-    volume: along an axis of length s the taps reach 3s - 2 inputs. The
-    others multiply the zero padding, so the forward and dx need neither
-    their bytes nor their work (dk still writes them)."""
-    return math.prod(3 * s - 2 for s in spatial) * filters * chans
-
-
-def lc_bound(name, x, k, g):
-    """Bytes and float32 operations K7, K8 or K9 needs at these inputs."""
-    batch, chans, filters = x.shape[0], x.shape[-1], k.shape[0]
-    live = lc_live_weights(x.shape[1:4], filters, chans)
-    xb, gb, ksz = x.numel() * x.element_size(), g.numel() * 4, k.element_size()
-    if name == 'lc_fwd':   # read live weights and x, write y (f32)
-        return live * ksz + xb + gb, 2 * live * batch
-    if name == 'lc_dk':    # read g and x, write every weight
-        return k.numel() * ksz + gb + xb, live * (2 * batch - 1)
-    return live * ksz + gb + xb, 2 * live * batch   # dx: read weights, g
-
-
-def body_run(name, kern):
-    """(result, body that ran: 'row', 'keras_row' or 'voxel') of kern(), one
-    launch of kernel `name` ('lc_fwd', 'lc_dk' or 'lc_dx'), read from the
-    launch counts."""
-    bodies = ('row', 'keras_row')
-    before = [_build.launches[f'{name}_{b}'] for b in bodies]
-    out = kern()
-    ran = [b for b, n in zip(bodies, before)
-           if _build.launches[f'{name}_{b}'] > n]
-    return out, ran[0] if ran else 'voxel'
-
-
-def phase_lc(checks, res):
-    print('== 10. LC K7/K8/K9 vs plain', flush=True)
-    gen = torch.Generator(device='cuda').manual_seed(10)
-    # the head's shapes: bf16 (the step's types), then float32; equal, each
-    # through its row body
-    for dtype in (torch.bfloat16, torch.float32):
-        x, k, g = lc_inputs(gen, 1, LC_VOL, 4, 1, dtype)
-        if dtype == torch.bfloat16:
-            # the card's read rate for the weights' bytes: a bandwidth probe
-            # beside K7 and K9, not a library call (none is an LC conv)
-            read_ms = time_ms(lambda: k.sum(dtype=torch.float32))
-            kb = k.numel() * k.element_size()
-            print(f'  read ceiling probe (bandwidth, not library_ms): '
-                  f'w.sum(dtype=float32) at {list(k.shape)} bf16: '
-                  f'{read_ms:.4f} ms = {kb / read_ms / 1e9:.3f} TB/s',
-                  flush=True)
-        for name, kern, plain in lc_calls(x, k, g, False):
-            (a, body), b = body_run(name, kern), plain()
-            torch.cuda.synchronize()
-            err = max_abs_err(a, b)
-            tag = f'{str(dtype)[6:]} x {list(x.shape)} w {list(k.shape)}'
-            checks.check(f'{name} {tag}', bit_equal(a, b) and body == 'row',
-                         f'equal {bool(torch.equal(a, b))}, max abs err '
-                         f'{err:.3g}, body {body} (row expected)')
-            r = res[name]
-            r['max_abs_err'] = max(r['max_abs_err'], err)
-            del a, b
-            if dtype != torch.bfloat16:
-                continue
-            r['ms'], r['plain_ms'] = time_ms(kern), time_ms(plain)
-            r['library_ms'] = None   # no single PyTorch call is an LC conv
-            nbytes, flops = lc_bound(name, x, k, g)
-            add_bound(r, nbytes, flops)
-            c_ms = call_ms(kern)
-            print(f'  {name} {tag}: kernel {r["ms"]:.4f} ms, plain '
-                  f'{r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
-                  f'({r["bound_by"]}; {nbytes} B, {flops} flop); one kernel '
-                  f'call {c_ms:.4f} ms', flush=True)
-            if name in ('lc_fwd', 'lc_dx'):
-                live = lc_live_weights(x.shape[1:4], 1, 4) * k.element_size()
-                print(f'  {name} reads the live weights at '
-                      f'{live / r["ms"] / 1e9:.3f} TB/s; read probe '
-                      f'{read_ms:.4f} ms', flush=True)
-            if name == 'lc_fwd':
-                # a second reading in the same process: the spread of
-                # K7's time on one card
-                print(f'  lc_fwd second reading: {time_ms(kern):.4f} ms',
-                      flush=True)
-            if name == 'lc_dk':
-                # the card's write rate for dk's bytes: a bandwidth probe,
-                # not a library call (no PyTorch call is an LC dk)
-                p_ms = time_ms(lambda: torch.empty_like(k).zero_())
-                nb = k.numel() * k.element_size()
-                print(f'  write ceiling probe (bandwidth, not library_ms): '
-                      f'torch.empty_like(dk).zero_() at {list(k.shape)} '
-                      f'{str(k.dtype)[6:]}: {p_ms:.4f} ms = '
-                      f'{nb / p_ms / 1e9:.3f} TB/s; K8 at '
-                      f'{nb / r["ms"] / 1e9:.3f} TB/s of dk', flush=True)
-        del x, k, g
-    # 2 filters, batch 3, both weight layouts: the strides, the filter loop
-    # and the batch fold (each by its one-voxel body); equal
-    for dtype in (torch.bfloat16, torch.float32):
-        x, k, g = lc_inputs(gen, 3, 32, 4, 2, dtype)
-        for keras in (False, True):
-            kk = k.permute(2, 1, 0).contiguous() if keras else k
-            for name, kern, plain in lc_calls(x, kk, g, keras):
-                (a, body), b = body_run(name, kern), plain()
-                torch.cuda.synchronize()
-                err = max_abs_err(a, b)
-                want = 'voxel'
-                checks.check(
-                    f'{name} {str(dtype)[6:]} 32^3 O=2 B=3 '
-                    f'{"keras" if keras else "transposed"}',
-                    bit_equal(a, b) and body == want,
-                    f'equal {bool(torch.equal(a, b))}, max abs err '
-                    f'{err:.3g}, body {body} ({want} expected)')
-                res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
-    # off the head's shape, batch 1: W = 19 (a thread's voxels would cross
-    # rows: the one-voxel bodies); W = 24, V = 16*17*24 = 6528 (the row
-    # bodies, V a multiple of 8 voxels but not of 8 x 256: a ragged last
-    # block, and warps that span two rows); 'valid' at [16, 17, 18], out
-    # [14, 15, 16] (K7's and K8's row bodies without padding; K9's row body
-    # takes 'same' only); 32^3 with 2 filters (the row bodies' filter
-    # loops); equal. K8 in the keras layout too: its keras row body at one
-    # filter (ragged last blocks), its one-voxel body at 2
-    for sp, padding, O, want in (((15, 17, 19), 'same', 1, 'voxel'),
-                                 ((16, 17, 24), 'same', 1, 'row'),
-                                 ((16, 17, 18), 'valid', 1, 'row'),
-                                 ((32, 32, 32), 'same', 2, 'row')):
-        out = [s - 2 for s in sp] if padding == 'valid' else list(sp)
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((1, *sp, 4), generator=gen,
-                            device='cuda').to(dtype)
-            k = torch.randn((O, 108, math.prod(out)), generator=gen,
-                            device='cuda').to(dtype)
-            g = torch.randn((1, *out, O), generator=gen, device='cuda')
-            shape = tuple(x.shape)
-            for name, kern, plain in (
-                    ('lc_fwd', lambda: lc_cuda.fwd_cuda(x, k, LC_KS, padding),
-                     lambda: lc_cuda.fwd_plain(x, k, LC_KS, padding)),
-                    ('lc_dk', lambda: lc_cuda.dk_cuda(g, x, LC_KS, padding,
-                                                      dtype),
-                     lambda: lc_cuda.dk_plain(g, x, LC_KS, padding, dtype)),
-                    ('lc_dx', lambda: lc_cuda.dx_cuda(g, k, LC_KS, padding,
-                                                      shape, dtype),
-                     lambda: lc_cuda.dx_plain(g, k, LC_KS, padding, shape,
-                                              dtype))):
-                expect = 'voxel' if name == 'lc_dx' and padding == 'valid' \
-                    else want
-                (a, body), b = body_run(name, kern), plain()
-                torch.cuda.synchronize()
-                checks.check(f'{name} {str(dtype)[6:]} x {list(x.shape)} '
-                             f'O={O} {padding}',
-                             bit_equal(a, b) and body == expect,
-                             f'equal {bool(torch.equal(a, b))}, max abs err '
-                             f'{max_abs_err(a, b):.3g}, body {body} '
-                             f'({expect} expected)')
-            expect = 'keras_row' if O == 1 else 'voxel'
-            a, body = body_run('lc_dk', lambda: lc_cuda.dk_cuda(
-                g, x, LC_KS, padding, dtype, keras=True))
-            b = lc_cuda.dk_plain(g, x, LC_KS, padding, dtype, keras=True)
-            torch.cuda.synchronize()
-            checks.check(f'lc_dk keras {str(dtype)[6:]} x {list(x.shape)} '
-                         f'O={O} {padding}',
-                         bit_equal(a, b) and body == expect,
-                         f'equal {bool(torch.equal(a, b))}, max abs err '
-                         f'{max_abs_err(a, b):.3g}, body {body} '
-                         f'({expect} expected)')
-            # K7 and K9 in the keras layout: their keras row bodies at one
-            # filter (K9's at 'same' only), bit-equal to plain and to their
-            # one-voxel bodies; K9 with and without the v1's rounded
-            # products
-            kv = lc_cuda._weight_view(k.permute(2, 1, 0).contiguous(), True)
-            for name, kern, plain, voxel in keras_fwd_dx_calls(
-                    x, kv, g, padding):
-                expect = 'voxel' if O > 1 or (
-                    name.startswith('lc_dx') and padding == 'valid') \
-                    else 'keras_row'
-                (a, body), b, c = (body_run(name.split()[0], kern), plain(),
-                                   voxel())
-                torch.cuda.synchronize()
-                checks.check(f'{name} keras {str(dtype)[6:]} x '
-                             f'{list(x.shape)} O={O} {padding}',
-                             bit_equal(a, b) and bit_equal(a, c)
-                             and body == expect,
-                             f'equal to plain {bit_equal(a, b)}, to the '
-                             f'one-voxel body {bit_equal(a, c)}, max abs err '
-                             f'{max_abs_err(a, b):.3g}, body {body} '
-                             f'({expect} expected)')
-
-    # the keras row bodies of K7 and K9 at other kernel sizes, batch 1:
-    # (5, 2, 3) (an even ky: low padding 0), (3, 3, 2) (a halo of one voxel
-    # along W), (11, 3, 3) (TC = 396: K7's 32-voxel blocks in bf16, its
-    # float32 tiles past 48 KB: its one-voxel body); equal to plain and to
-    # the one-voxel bodies
-    for sp, ks in (((7, 6, 9), (5, 2, 3)), ((6, 7, 9), (3, 3, 2)),
-                   ((12, 4, 8), (11, 3, 3))):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((1, *sp, 4), generator=gen,
-                            device='cuda').to(dtype)
-            k2 = torch.randn((math.prod(sp), 4 * math.prod(ks)),
-                             generator=gen, device='cuda').to(dtype)
-            g = torch.randn((1, *sp, 1), generator=gen, device='cuda')
-            kv = lc_cuda._weight_view(k2, True)
-            for name, kern, plain, voxel in keras_fwd_dx_calls(
-                    x, kv, g, 'same', ks):
-                expect = 'voxel' if (ks[0] == 11 and dtype == torch.float32
-                                     and name == 'lc_fwd') else 'keras_row'
-                (a, body), b, c = (body_run(name.split()[0], kern), plain(),
-                                   voxel())
-                torch.cuda.synchronize()
-                checks.check(f'{name} keras {str(dtype)[6:]} x '
-                             f'{list(x.shape)} kernel {ks}',
-                             bit_equal(a, b) and bit_equal(a, c)
-                             and body == expect,
-                             f'equal to plain {bit_equal(a, b)}, to the '
-                             f'one-voxel body {bit_equal(a, c)}, body {body} '
-                             f'({expect} expected)')
-
-    # the keras-layout v1 entry point through autograd, at the head's shape
-    sp, V = (LC_VOL,) * 3, LC_VOL ** 3
-    xf = torch.randn((V, 4), generator=gen, device='cuda').bfloat16()
-    k2 = torch.randn((V, 108), generator=gen, device='cuda').bfloat16()
-    gf = torch.randn((V, 1), generator=gen, device='cuda')
-    xr, kr = xf.clone().requires_grad_(), k2.clone().requires_grad_()
-    rows = ('lc_fwd_row', 'lc_dk_row', 'lc_dx_row')
-    keras_rows = ('lc_fwd_keras_row', 'lc_dk_keras_row', 'lc_dx_keras_row')
-    before = {n: _build.launches[n] for n in rows + keras_rows}
-    y = lc_cuda.lc3d_pallas(xr, kr, sp, LC_KS)
-    dx, dk = torch.autograd.grad(y, (xr, kr), gf)
-    ran = {n: _build.launches[n] - before[n] for n in rows + keras_rows}
-    checks.check('lc3d_pallas (keras, v1) bodies',
-                 ran == {**dict.fromkeys(rows, 0),
-                         **dict.fromkeys(keras_rows, 1)},
-                 f'{ran} (expected: K7, K8 and K9 once each by their keras '
-                 f'row bodies, no row-body launch)')
-    x5, g5 = xf.reshape(1, *sp, 4), gf.reshape(1, *sp, 1)
-    kv = lc_cuda._weight_view(k2, True)
-    want = (lc_cuda.fwd_plain(x5, kv, LC_KS, 'same').reshape(V, 1),
-            lc_cuda.dx_plain(g5, kv, LC_KS, 'same', tuple(x5.shape),
-                             torch.bfloat16, True).reshape(V, 4),
-            lc_cuda.dk_plain(g5, x5, LC_KS, 'same', torch.bfloat16,
-                             True).reshape(V, 108))
-    torch.cuda.synchronize()
-    for what, a, b, name in zip(('y', 'dx', 'dk'), (y.detach(), dx, dk), want,
-                                ('lc_fwd', 'lc_dx', 'lc_dk')):
-        err = max_abs_err(a, b)
-        checks.check(f'lc3d_pallas (keras, v1) bf16 [{V}, 4] {what}',
-                     bit_equal(a, b), f'max abs err {err:.3g}')
-        res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
-    del want
-    # each keras row body against the one-voxel body it replaced, on the
-    # same inputs: bit-equal (y, dx and dk above ran by keras_row)
-    dk1 = torch.empty_like(k2)
-    view1 = lc_cuda._weight_view(dk1, True)
-    lc_cuda._dk_launch(g5, x5, view1, LC_KS, 'same', 'voxel')
-    y1 = torch.empty_like(y).reshape(x5.shape[:4] + (1,))
-    lc_cuda._fwd_launch(x5, kv, y1, LC_KS, 'same', 'voxel')
-    dx1 = torch.empty_like(x5)
-    lc_cuda._dx_launch(g5, kv, dx1, LC_KS, 'same', True, 'voxel')
-    torch.cuda.synchronize()
-    for name, a, b in (('lc_fwd', y.detach().reshape(y1.shape), y1),
-                       ('lc_dk', dk, dk1), ('lc_dx', dx.reshape(dx1.shape),
-                                            dx1)):
-        checks.check(f'{name} keras [{V}, 4] bf16: keras_row vs one-voxel '
-                     f'body', bit_equal(a, b), f'bit-equal {bit_equal(a, b)}')
-    del y, dx, dk, y1, dx1, xr, kr
-    # the keras-layout kernels' times at the head (Pallas rows 9-11; no
-    # layer routes the step to them): each keras row body beside its
-    # one-voxel body, its bytes bound and the card's read (K7, K9) or
-    # write (K8) rate for the same bytes; the keras row bodies twice
-    y1, dx1 = torch.empty((1, *sp, 1), device='cuda'), torch.empty_like(x5)
-    launches = {
-        'lc_fwd': lambda b: lc_cuda._fwd_launch(x5, kv, y1, LC_KS, 'same', b),
-        'lc_dk': lambda b: lc_cuda._dk_launch(g5, x5, view1, LC_KS, 'same',
-                                              b),
-        'lc_dx': lambda b: lc_cuda._dx_launch(g5, kv, dx1, LC_KS, 'same',
-                                              True, b),
-    }
-    write_ms = time_ms(lambda: torch.empty_like(dk1).zero_())
-    for name, launch in launches.items():
-        t = [time_ms(lambda: launch(b)) for b in
-             ('keras_row', 'voxel', 'keras_row')]
-        nbytes, flops = lc_bound(name, x5, kv, g5)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        probe = (f'write probe torch.empty_like(dk).zero_() {write_ms:.4f}'
-                 if name == 'lc_dk' else
-                 f'read probe w.sum() {read_ms:.4f}')
-        print(f'  {name} keras [{V}, 4] bf16: keras_row {t[0]:.4f} ms '
-              f'(second reading {t[2]:.4f}), one-voxel body {t[1]:.4f} ms; '
-              f'bound {b_ms:.4f} ms ({b_by}); {probe} ms', flush=True)
-        checks.check(f'{name} keras [{V}, 4] bf16: keras_row faster than '
-                     f'the one-voxel body', max(t[0], t[2]) < t[1],
-                     f'{t[0]:.4f} and {t[2]:.4f} vs {t[1]:.4f} ms')
-
-
-def keras_fwd_dx_calls(x, kv, g, padding, ks=LC_KS):
-    """(name, call, plain call, one-voxel body call) of K7 and of K9 with
-    and without rounded products on x, the keras weights' [O, TC, V] view
-    kv and g."""
-    shape, dtype = tuple(x.shape), x.dtype
-
-    def fwd_voxel():
-        y = torch.empty(g.shape, device='cuda')
-        lc_cuda._fwd_launch(x, kv, y, ks, padding, 'voxel')
-        return y
-
-    def dx_voxel(round_q):
-        dx = torch.empty_like(x)
-        lc_cuda._dx_launch(g, kv, dx, ks, padding, round_q, 'voxel')
-        return dx
-
-    calls = [('lc_fwd', lambda: lc_cuda.fwd_cuda(x, kv, ks, padding),
-              lambda: lc_cuda.fwd_plain(x, kv, ks, padding), fwd_voxel)]
-    for rq in (False, True):
-        calls.append((
-            f'lc_dx{" round_q" if rq else ""}',
-            lambda rq=rq: lc_cuda.dx_cuda(g, kv, ks, padding, shape, dtype,
-                                          rq),
-            lambda rq=rq: lc_cuda.dx_plain(g, kv, ks, padding, shape, dtype,
-                                           rq),
-            lambda rq=rq: dx_voxel(rq)))
-    return calls
 
 
 def config3(size, dtype, impl='auto'):
@@ -1959,57 +936,27 @@ def phase_lc_check(checks):
          'lc_dx': 1, 'lc_dx_row': 1, 'pool2_fwd': 2, 'pool2_bwd': 2})
 
 
-def phase_lc_train(checks, res):
+def phase_lc_train(checks):
     print(f'== 12. config #3: UNet -> LocallyConnected3D head, bf16, '
           f'{TRAIN_STEPS} steps at {LC_VOL}^3', flush=True)
-    t0 = time.perf_counter()
     model = config3(LC_VOL, torch.bfloat16)
-    init_s = time.perf_counter() - t0
-    n_par = sum(p.numel() for p in model.parameters())
-    print(f'  model built in {init_s:.3f} s (weights drawn on the CPU, then '
-          f'moved): {n_par} parameters, head kernel '
-          f'{list(model.lc.kernel.shape)} {model.lc.kernel.dtype}')
+    print(f'  {sum(p.numel() for p in model.parameters())} parameters, head '
+          f'kernel {list(model.lc.kernel.shape)} {model.lc.kernel.dtype}')
     x, y = config3_inputs(LC_VOL)
     state = training.create_train_state(model, training.adam(1e-4))
     step = training.make_train_step(mse)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.launches.clear()
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, (x, y))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m['loss'])
-    counts = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
+    state, losses, _, counts, _ = timed_steps(step, state, ((x, y),))
     checks.check('config #3 losses finite', all(np.isfinite(losses)),
                  ' '.join(f'{v:.6f}' for v in losses))
     moments = state.optimizer.state[model.lc.kernel]['exp_avg'].dtype
     checks.check('config #3 head moments in the parameter dtype',
                  moments == torch.bfloat16, str(moments))
-    per_step = {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1, 'lc_fwd_row': 1,
-                'lc_dk': 1, 'lc_dk_row': 1, 'lc_dx': 1, 'lc_dx_row': 1,
-                'adam': 2, 'adam_vec': 2}
-    for name, n in per_step.items():
-        got, want = counts.get(name, 0), n * TRAIN_STEPS
-        checks.check(f'config #3 launches {name}', got == want and got > 0,
-                     f'{got} (expected {n} per step)')
-        if name in ('lc_fwd', 'lc_dk', 'lc_dx', 'adam'):
-            record_launches(res, name, counts)
+    check_step_counts(checks, 'config #3', counts,
+                      {'pool2_fwd': 2, 'pool2_bwd': 2, 'lc_fwd': 1,
+                       'lc_fwd_row': 1, 'lc_dk': 1, 'lc_dk_row': 1,
+                       'lc_dx': 1, 'lc_dx_row': 1, 'adam': 2, 'adam_vec': 2},
+                      TRAIN_STEPS)
     check_vec_bodies(checks, 'config #3', counts)
-    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
-    print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
-          f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
-    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
-          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
-    try:
-        report_profile('config #3 step', lambda i: step(state, (x, y)),
-                       TRAIN_STEPS)
-    except Exception as e:  # noqa: BLE001  (a reading, not a check)
-        print(f'  config #3 profile not measured: {type(e).__name__}: {e}')
 
 
 def make_pair(size, seed=0):
@@ -2036,150 +983,6 @@ def registration_loss(mi, moving, fixed, field, fused=True, impl='auto'):
     if fused:
         return -mi.volumes_fused(warped, fixed, impl=impl).mean()
     return -mi.volumes(warped, fixed).mean()
-
-
-def mi_flops(n_vox, nb_bins):
-    """Float32 operations of the fused MI histograms: per voxel 2 B^2 for
-    the joint histogram, 2 B for the marginals and, per map and bin, a
-    subtract, a square, a scale and an exp."""
-    return n_vox * (2 * nb_bins ** 2 + 2 * nb_bins + 2 * 4 * nb_bins)
-
-
-def phase_mi(checks, res):
-    print('== 13. MI histograms K10 vs plain', flush=True)
-    gen = torch.Generator(device='cuda').manual_seed(13)
-    r = res['mi_hist']
-    alpha = nt.metrics.MutualInformation(nb_bins=MI_BINS).soft_bin_alpha
-    alpha8 = nt.metrics.MutualInformation(nb_bins=8).soft_bin_alpha
-    moving, fixed = (torch.from_numpy(a).cuda().reshape(1, -1)
-                     for a in make_pair(VOL))
-    n = VOL ** 3
-
-    def rand(shape, lo=0., hi=1.):
-        return core.uniform(gen, shape, lo, hi, 'cuda')
-
-    def centers(v, nb=MI_BINS):
-        return core.linspace(v.min(), v.max(), nb)
-
-    unit = torch.linspace(0., 1., MI_BINS, device='cuda')
-    nan_x = moving.clone()
-    nan_x[0, 12345] = float('nan')
-    x2, y2 = rand((2, 1000)), rand((2, 1000))
-    xr, yr = rand((1, n + 37)), rand((1, n + 37))
-    xc, yc = rand((1, n), -1., 2.), rand((1, n), -1., 2.)
-    cases = [  # (name, x, y, cx, cy, alpha, min_clip, max_clip)
-        (f'path [1, {VOL}^3] B=16, centers from the data', moving, fixed,
-         centers(moving), centers(fixed), alpha, -np.inf, np.inf),
-        ('[2, 1000] B=16', x2, y2, unit, unit, alpha, -np.inf, np.inf),
-        (f'[1, {VOL}^3+37] B=16', xr, yr, unit, unit, alpha, -np.inf, np.inf),
-        (f'[1, {VOL}^3] B=8, clip [0, 1], inputs in [-1, 2]', xc, yc,
-         torch.linspace(0., 1., 8, device='cuda'),
-         torch.linspace(0., 1., 8, device='cuda'), alpha8, 0., 1.),
-        (f'path [1, {VOL}^3] B=16, one NaN voxel', nan_x, fixed,
-         unit, unit, alpha, -np.inf, np.inf),
-    ]
-    # past one 64-bin chunk: 2 x 2 pairs of chunks, 65 (a chunk of one bin)
-    # and 128; 16 x 16 at 1024 bins on [1, 32^3], with 15 blocks a row (the
-    # scratch bound of mi_hist_cuda._launch_blocks)
-    x64, y64 = rand((1, 64 ** 3)), rand((1, 64 ** 3))
-    x32, y32 = rand((1, 32 ** 3)), rand((1, 32 ** 3))
-    for nb, xs, ys, tag in ((5, x64, y64, '64^3'), (17, x64, y64, '64^3'),
-                            (65, x64, y64, '64^3'), (128, x64, y64, '64^3'),
-                            (1024, x32, y32, '32^3')):
-        c = torch.linspace(0., 1., nb, device='cuda')
-        cases.append((f'[1, {tag}] B={nb}', xs, ys, c, c,
-                      nt.metrics.MutualInformation(nb_bins=nb).soft_bin_alpha,
-                      -np.inf, np.inf))
-    for i, (name, x, y, cx, cy, a, lo, hi) in enumerate(cases):
-        before = _build.launches['mi_hist_tiled']
-        k = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
-        body = 'tiled' if _build.launches['mi_hist_tiled'] > before else '-'
-        k2 = mi_hist_cuda.mi_histograms_cuda(x, y, cx, cy, a, lo, hi)
-        p = mi_hist._mi_histograms_plain(x, y, cx, cy, a, lo, hi)
-        torch.cuda.synchronize()
-        rel = max(rel_err(u, w) for u, w in zip(k, p))
-        nan_ok = all(torch.equal(torch.isnan(u), torch.isnan(w))
-                     for u, w in zip(k, p))
-        same = all(bit_equal(u, u2) for u, u2 in zip(k, k2))
-        n_nan = sum(int(torch.isnan(u).sum()) for u in k)
-        checks.check(f'mi_hist {name}',
-                     rel <= 1e-5 and nan_ok and same and body == 'tiled',
-                     f'max abs err / max |plain| {rel:.3g} (1e-5), NaN where '
-                     f'plain has it {nan_ok} ({n_nan} NaN), two calls '
-                     f'bit-equal {same}, body {body} '
-                     f'({mi_hist_cuda.plan(cx.numel())})')
-        if i == 0:
-            r['max_abs_err'] = max(max_abs_err(u, w) for u, w in zip(k, p))
-
-    # alpha as a CUDA 0-d tensor: read by the kernel, no host sync, the
-    # float call's bits (the wrapper, and the entry point's K10 route)
-    at = torch.tensor(alpha, dtype=torch.float32, device='cuda')
-    want = mi_hist_cuda.mi_histograms_cuda(moving, fixed, unit, unit, alpha)
-    torch.cuda.synchronize()
-    err = ''
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        got = (mi_hist_cuda.mi_histograms_cuda(moving, fixed, unit, unit, at),
-               nt.ops.mi_histograms(moving, fixed, unit, at, impl='pallas'))
-    except RuntimeError as e:
-        got, err = (), f'; {e}'
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    same = bool(got) and all(bit_equal(u, w) for out in got
-                             for u, w in zip(out, want))
-    checks.check('mi_hist alpha as a CUDA 0-d tensor', same,
-                 f'no host sync {not err}, bit-equal to the float alpha '
-                 f'{same}{err}')
-
-    # MIHistograms' dx and dy on the K10 route against the plain forward
-    x, y, cx, cy = moving, fixed, centers(moving), centers(fixed)
-    w = [torch.randn(s, generator=gen, device='cuda')
-         for s in ((1, MI_BINS, MI_BINS), (1, MI_BINS), (1, MI_BINS))]
-    grads = []
-    for impl in ('pallas', 'plain'):
-        xi, yi = x.clone().requires_grad_(), y.clone().requires_grad_()
-        out = nt.ops.mi_histograms(xi, yi, cx, alpha, impl=impl,
-                                   bin_centers_y=cy)
-        grads.append(torch.autograd.grad(
-            sum((wi * o).sum() for wi, o in zip(w, out)), (xi, yi)))
-    torch.cuda.synchronize()
-    rel = max(rel_err(a, b) for a, b in zip(*grads))
-    checks.check('mi_hist backward (dx, dy) K10 route vs plain', rel <= 1e-5,
-                 f'max abs err / max |g| {rel:.3g} (1e-5)')
-
-    # times at the path's shape, and by K10's two launches
-    parts = time_by_name(lambda: mi_hist_cuda.mi_histograms_cuda(
-        x, y, cx, cy, alpha))
-    k_ms = sum(parts.values())
-    clk = clocks_under(lambda: mi_hist_cuda.mi_histograms_cuda(
-        x, y, cx, cy, alpha))
-    print(f'  SM clock and power under K10 back to back (nvidia-smi, '
-          f'median): {clk} (MHz, W)', flush=True)
-    print('  mi_hist launches: ' + '; '.join(
-        f'{name.split("::")[-1].split("(")[0]} {ms:.4f} ms'
-        for name, ms in parts.items()),
-        flush=True)
-    p_ms = time_ms(lambda: mi_hist._mi_histograms_plain(x, y, cx, cy, alpha))
-
-    def materialized():   # MutualInformation.maps' route: two maps, a bmm
-        xq = core.soft_quantize(x, cx, None, alpha)
-        yq = core.soft_quantize(y, cy, None, alpha)
-        return torch.bmm(xq.transpose(1, 2), yq)
-    m_ms = time_ms(materialized)
-    c_ms = call_ms(lambda: mi_hist_cuda.mi_histograms_cuda(
-        x, y, cx, cy, alpha))
-    nbytes = (2 * n + 2 * MI_BINS + MI_BINS ** 2 + 2 * MI_BINS) * 4
-    flops = mi_flops(n, MI_BINS)
-    r.update(ms=k_ms, plain_ms=p_ms, library_ms=None)
-    add_bound(r, nbytes, flops)
-    print(f'  mi_hist [1, {VOL}^3] B={MI_BINS}: kernel {k_ms:.4f} ms, plain '
-          f'{p_ms:.4f} ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}; '
-          f'{nbytes} B, {flops} flop); one kernel call {c_ms:.4f} ms',
-          flush=True)
-    print(f'  materialized route (two soft_quantize maps [1, {VOL}^3, '
-          f'{MI_BINS}] and one bmm, no marginals): {m_ms:.4f} ms',
-          flush=True)
 
 
 def phase_reg_check(checks):
@@ -2221,7 +1024,7 @@ def phase_reg_check(checks):
                  f'max abs err / max |g| {rel:.3g} (1e-4)')
 
 
-def phase_reg_train(checks, res):
+def phase_reg_train(checks):
     print(f'== 15. MI registration at {VOL}^3: {TRAIN_STEPS} Adam steps of '
           f'the field', flush=True)
     moving, fixed = (torch.from_numpy(a).cuda() for a in make_pair(VOL))
@@ -2264,7 +1067,6 @@ def phase_reg_train(checks, res):
         got = counts.get(name, 0)
         checks.check(f'MI registration launches {name}',
                      got == TRAIN_STEPS, f'{got} (expected 1 per step)')
-    record_launches(res, 'mi_hist', counts)
     step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
     print(f'  step ms (median of steps {WARMUP_STEPS + 1}-{TRAIN_STEPS}): '
           f'{step_ms:.3f}; all: ' + ' '.join(f'{1e3 * t:.2f}' for t in times))
@@ -2363,16 +1165,6 @@ def vae_input(vol):
     return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
-def record_path(res, path, counts, names):
-    """Kernel launches (and body launches) of a path's run, per kernel, in
-    the kernels line's `paths`."""
-    for name in names:
-        res[name]['paths'][path] = {
-            'launches': counts.get(name, 0),
-            'body_launches': {c: counts.get(c, 0)
-                              for c in BODY_COUNTERS[name]}}
-
-
 def check_step_counts(checks, path, counts, per_step, steps, unit='step'):
     for name, n in per_step.items():
         got, want = counts.get(name, 0), n * steps
@@ -2427,7 +1219,7 @@ def phase_strip_check(checks):
         {'pool2_fwd': 6, 'pool2_bwd': 6, 'interpn': 6, 'blur': 3})
 
 
-def phase_strip_train(checks, res):
+def phase_strip_train(checks):
     print(f'== 17. SynthStrip: v1 synthesis -> f32 UNet (mri_synthstrip '
           f'widths, 7 levels), {TRAIN_STEPS} steps at {VOL}^3', flush=True)
     lab = strip_labels(VOL, 0)
@@ -2437,36 +1229,13 @@ def phase_strip_train(checks, res):
                  f'{n_par} (FreeSurfer StripModel: 2566145)')
     state = training.create_train_state(model, training.adam(1e-3))
     step = training.make_train_step(strip_loss)
-    # the bodies the choosers pick at the path's shapes (from shapes alone)
-    for size, c in STRIP_POOLS:
-        body = pool_cuda.plan((1, size, size, size, c), torch.float32,
-                              (0, 0)).body
-        print(f'  pool2_fwd at [1, {size}^3, {c}] f32: pool_cuda.plan picks '
-              f'{body!r}')
-    for size, c, what in ((VOL // 2, 3, 'linear squaring'),
-                          (VOL, 1, 'nearest label warp')):
-        body = warp_cuda.plan(
-            torch.empty((1, size, size, size, c), device='meta'),
-            torch.empty((1, size, size, size, 3), device='meta'))
-        print(f'  interpn, {what} at [1, {size}^3, {c}]: warp_cuda.plan '
-              f'picks {body!r}')
-    for axis in (1, 2, 3):
-        print(f'  blur axis {axis} at [1, {VOL}^3], 7 taps: blur_cuda.plan '
-              f'picks {blur_cuda.plan((1, VOL, VOL, VOL), axis, 7).body!r}')
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
-    losses, times = [], []
+    losses = []
     for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
         state, m = step(state, (lab, lab),
                         training.step_generator(0, i, 'cuda'))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(m['loss'])
+        losses.append(float(m['loss']))
     counts = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
     checks.check('SynthStrip losses finite', all(np.isfinite(losses)),
                  ' '.join(f'{v:.6f}' for v in losses))
     check_step_counts(checks, 'SynthStrip', counts,
@@ -2475,39 +1244,14 @@ def phase_strip_train(checks, res):
                        'blur_whole': 3}, TRAIN_STEPS)
     check_adam_counts(checks, 'SynthStrip', counts,
                       adam_per_step(state.optimizer), TRAIN_STEPS)
-    record_path(res, 'synthstrip', counts, PATH_RUNS['synthstrip'][1])
-    step_ms = 1e3 * statistics.median(times[WARMUP_STEPS:])
-    print(f'  step ms (synthesis + train step, median of steps '
-          f'{WARMUP_STEPS + 1}-{TRAIN_STEPS}): {step_ms:.3f}; all: '
-          + ' '.join(f'{1e3 * t:.2f}' for t in times))
-    print(f'  vol/s {1e3 / step_ms:.3f}; peak memory {peak} B '
-          f'({peak / 2 ** 30:.3f} GiB)', flush=True)
 
-    def synth(i):
+    def synth():
         with torch.no_grad():
-            return model.gen(lab, training.step_generator(0, i, 'cuda'))
-    s_ms = []
-    for i in range(TRAIN_STEPS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        synth(i)
-        ev[1].record()
-        ev[1].synchronize()
-        s_ms.append(ev[0].elapsed_time(ev[1]))
-    print(f'  synthesis ms (CUDA events, median of calls {WARMUP_STEPS + 1}-'
-          f'{TRAIN_STEPS}): {statistics.median(s_ms[WARMUP_STEPS:]):.3f}; '
-          f'all: ' + ' '.join(f'{t:.2f}' for t in s_ms), flush=True)
-    synced = no_host_sync(lambda: synth(TRAIN_STEPS))
+            return model.gen(lab, training.step_generator(0, TRAIN_STEPS,
+                                                          'cuda'))
+    synced = no_host_sync(synth)
     checks.check('SynthStrip synthesis without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
-    for label, fn in (('SynthStrip synthesis', synth),
-                      ('SynthStrip step', lambda i: step(
-                          state, (lab, lab),
-                          training.step_generator(0, i, 'cuda')))):
-        try:
-            report_profile(label, fn, TRAIN_STEPS)
-        except Exception as e:  # noqa: BLE001  (a reading, not a check)
-            print(f'  {label} profile not measured: {type(e).__name__}: {e}')
 
 
 def phase_vae_check(checks):
@@ -2522,7 +1266,7 @@ def phase_vae_check(checks):
         {'pool2_fwd': 3, 'pool2_bwd': 3})
 
 
-def phase_vae_train(checks, res):
+def phase_vae_train(checks):
     print(f'== 19. config #4: conv VAE (bf16 encoder), {TRAIN_STEPS} steps '
           f'at {VOL}^3', flush=True)
     model = vae(VOL, torch.bfloat16)
@@ -2547,7 +1291,6 @@ def phase_vae_train(checks, res):
                       TRAIN_STEPS)
     check_adam_counts(checks, 'config #4', counts,
                       adam_per_step(state.optimizer), TRAIN_STEPS)
-    record_path(res, 'vae', counts, PATH_RUNS['vae'][1])
     report_steps('config #4', times, peak)
     try:
         report_profile('config #4 step', lambda i: step(state, (x, x), gen),
@@ -2785,10 +1528,10 @@ def phase_sparse_train(checks):
     # two moments read, the weights and moments written
     nbytes = 7 * 4 * n_par
     bound, by = bound_ms(nbytes, flops)
-    print(f'  step bound {bound:.3f} ms ({by}: {flops / 1e12:.4f} TFLOP at '
-          f'{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB at '
-          f'{HBM_BYTES_PER_S / 1e12:.2f} TB/s): step 1 at '
-          f'{bound / step_ms:.3f} of its bound', flush=True)
+    print(f'  step bound {bound:.3f} ms ({by}: {flops / 1e12:.4f} TFLOP, '
+          f'{nbytes / 1e9:.3f} GB, at the float32 and HBM rates of '
+          f'h100bench/peaks.json): step 1 at {bound / step_ms:.3f} of its '
+          f'bound', flush=True)
     synced = no_host_sync(lambda: step(state, batch, gen))
     checks.check('sparse VAE step without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
@@ -2799,7 +1542,7 @@ def phase_sparse_train(checks):
         print(f'  sparse VAE profile not measured: {type(e).__name__}: {e}')
 
 
-def phase_s2d(checks, res):
+def phase_s2d(checks):
     vol = S2D_CHECK_VOL
     print(f'== 22. flagship with space_to_depth=2: one f32 step at {vol}^3, '
           f'kernels vs plain; {TRAIN_STEPS} bf16 steps at {VOL}^3',
@@ -2825,7 +1568,6 @@ def phase_s2d(checks, res):
                        'dice_sums': 1, 'dice_sums_vec': 1}, TRAIN_STEPS)
     check_adam_counts(checks, 'flagship s2d', counts,
                       adam_per_step(state.optimizer), TRAIN_STEPS)
-    record_path(res, 's2d', counts, PATH_RUNS['s2d'][1])
     report_steps('flagship s2d', times, peak)
     try:
         report_profile('flagship s2d step',
@@ -2842,7 +1584,7 @@ def state_tensors(state):
     return out
 
 
-def phase_remat(checks, res):
+def phase_remat(checks):
     print(f'== 23. flagship with remat=True at {VOL}^3: f32 step vs '
           f'remat=False, {TRAIN_STEPS} bf16 steps, checkpoints, the checked '
           f'step', flush=True)
@@ -2893,7 +1635,6 @@ def phase_remat(checks, res):
                                'dice_sums_vec': 1}, TRAIN_STEPS)
             check_adam_counts(checks, label, counts,
                               adam_per_step(state.optimizer), TRAIN_STEPS)
-            record_path(res, 'remat', counts, PATH_RUNS['remat'][1])
             try:
                 report_profile('flagship remat step',
                                lambda i: step(state, (x, y)), TRAIN_STEPS)
@@ -2968,7 +1709,7 @@ def serve_volume(size, seed=0):
         size=(size,) * 3 + (1,)).astype(np.float32)
 
 
-def phase_serve(checks, res):
+def phase_serve(checks):
     vol_shape, psize = (SERVE_VOL,) * 3, (SERVE_PATCH,) * 3
     grid = tiling.grid_size(vol_shape, psize, SERVE_STRIDE)
     n_patches = math.prod(grid)
@@ -2980,7 +1721,7 @@ def phase_serve(checks, res):
     vol = torch.from_numpy(host_vol).cuda()
     model = flagship(torch.bfloat16, vol=SERVE_PATCH).eval()
 
-    def run(_=None, m=model):
+    def run(m=model):
         return seg.predict_volume_device(m, vol, psize, stride=SERVE_STRIDE,
                                          agg='mean')
 
@@ -2996,7 +1737,6 @@ def phase_serve(checks, res):
                       'volume')
     checks.check('serve launches nothing else', set(counts) == {
         'pool2_fwd', 'pool2_fwd_vec'}, f'{counts}')
-    record_path(res, 'serve', counts, ('pool2_fwd',))
     sums = (out.float().sum(-1) - 1).abs().max()
     checks.check('serve prediction',
                  tuple(out.shape) == vol_shape + (NB_LABELS,)
@@ -3008,29 +1748,6 @@ def phase_serve(checks, res):
     synced = no_host_sync(run)
     checks.check('serve volume without host sync', not synced,
                  synced or "sync debug mode 'error' raised nothing")
-    times = []
-    for _ in range(SERVE_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    ms = statistics.median(times)
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    run()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    print(f'  serve on the card: ms per volume (median of {SERVE_REPS} after '
-          f'a warm-up) {ms:.3f}; all: ' + ' '.join(f'{t:.3f}' for t in times))
-    print(f'  serve on the card: patches/s {1e3 * n_patches / ms:.3f}, '
-          f'volumes/s {1e3 / ms:.3f}; peak memory {peak} B '
-          f'({peak / 2 ** 30:.3f} GiB; {base} B held before the call)',
-          flush=True)
-    try:
-        report_profile('serve volume', run, 0, calls=1)
-    except Exception as e:  # noqa: BLE001  (a reading, not a check)
-        print(f'  serve profile not measured: {type(e).__name__}: {e}')
 
     # the plain pool on the card gives the kernel route's bits
     plain = flagship(torch.bfloat16, pool_impl='plain', vol=SERVE_PATCH).eval()
@@ -3133,7 +1850,7 @@ def cce(y_true, y_pred):
     return -(y_true * torch.log(y_pred)).sum(-1).mean()
 
 
-def phase_classify(checks, res):
+def phase_classify(checks):
     vol = CLASSIFY_VOL
     print(f'== 25. EncoderNet step at {vol}^3, HyperConv3D and the stream '
           f'layers, card vs CPU', flush=True)
@@ -3165,7 +1882,6 @@ def phase_classify(checks, res):
     check_step_counts(checks, 'classify', counts,
                       {'pool2_fwd': 3, 'pool2_fwd_vec': 3, 'pool2_bwd': 3}, 1)
     check_adam_counts(checks, 'classify', counts, want, 1)
-    record_path(res, 'classify', counts, PATH_RUNS['classify'][1])
     checks.check('EncoderNet f32 loss, card vs CPU',
                  abs(lk - lc) <= 1e-5 * abs(lc) and not cpu_counts,
                  f'card {lk!r} CPU {lc!r} (rtol 1e-5)')
@@ -3288,7 +2004,7 @@ def disk_step():
         nt.losses.SoftDice(check_input_limits=False).loss)
 
 
-def phase_disk(checks, res):
+def phase_disk(checks):
     from neurite_tpu_torch.io import native
     print(f'== 26. the flagship from disk: {DISK_SUBJECTS} subjects of '
           f'{DISK_VOL}^3 .mgz -> generators.vol_seg -> prefetch_to_device -> '
@@ -3437,7 +2153,6 @@ def phase_disk(checks, res):
                                        'dice_sums_vec', 'adam', 'adam_vec'})
         checks.check('disk runs no other kernel', not others,
                      f'other launches: {others}')
-        record_path(res, 'disk', counts, PATH_RUNS['disk'][1])
         times = np.diff([0.] + log.times).tolist()
         disk_ms = report_steps('flagship from disk', times, peak)
         try:
@@ -3695,7 +2410,7 @@ def dp_one_rank_nccl(checks):
                  f'{len(pp)} tensors')
 
 
-def phase_dp(checks, res, card):
+def phase_dp(checks, card):
     print(f'== 28. data-parallel flagship ({card})', flush=True)
     dp_one_rank_nccl(checks)
     ref_loss, ref_grads, ref_params = dp_reference()
@@ -3742,12 +2457,6 @@ def phase_dp(checks, res, card):
               f'({out["allreduce_bytes"]} B), share {share:.4f}; peak '
               f'memory {out["peak"]} B ({out["peak"] / 2 ** 30:.3f} GiB); '
               f'{card}', flush=True)
-    for name in PATH_RUNS['dp'][1]:
-        res[name]['paths']['dp'] = [
-            {'launches': out['counts'].get(name, 0),
-             'body_launches': {c: out['counts'].get(c, 0)
-                               for c in BODY_COUNTERS[name]}}
-            for out in ranks]
     same = all(torch.equal(saved[0]['params'][n], s['params'][n])
                for s in saved[1:] for n in ref_params)
     checks.check('dp ranks\' parameters bit-equal to one another', same,
@@ -3932,7 +2641,7 @@ def halo_rank(rank, world, outdir):
     return out
 
 
-def phase_halo(checks, res, card):
+def phase_halo(checks, card):
     print(f'== 29. halo ops on a space={HALO_RANKS} mesh ({card})',
           flush=True)
     with tempfile.TemporaryDirectory() as d:
@@ -3957,12 +2666,6 @@ def phase_halo(checks, res, card):
                   + (f'; unsharded on one rank alone {t["unsharded"]:.3f} '
                      f'ms' if 'unsharded' in t else '') + f'; {card}',
                   flush=True)
-    for name in PATH_RUNS['halo'][1]:
-        res[name]['paths']['halo'] = [
-            {'launches': out['counts'].get(name, 0),
-             'body_launches': {c: out['counts'].get(c, 0)
-                               for c in BODY_COUNTERS[name]}}
-            for out in ranks]
 
 
 def space_flagship(rank, mesh, out):
@@ -4177,7 +2880,7 @@ def space_reference():
     return ref, peaks
 
 
-def phase_space(checks, res, card):
+def phase_space(checks, card):
     print(f'== 30. whole-model spatial sharding on a space={SPACE_RANKS} mesh '
           f'({card})', flush=True)
     (ref_loss, ref_grads, ref_params), peaks = space_reference()
@@ -4267,13 +2970,6 @@ def phase_space(checks, res, card):
                  all(torch.equal(saved[0]['params'][n], s['params'][n])
                      for s in saved[1:] for n in ref_params),
                  f'{SPACE_RANKS} ranks')
-    for path, part in (('space', 'a'), ('space_lc', 'b')):
-        for name in PATH_RUNS[path][1]:
-            res[name]['paths'][path] = [
-                {'launches': out[part]['counts'].get(name, 0),
-                 'body_launches': {c: out[part]['counts'].get(c, 0)
-                                   for c in BODY_COUNTERS[name]}}
-                for out in ranks]
 
 
 # tests/test_examples.py's checks of each script's returned dict
@@ -4292,8 +2988,7 @@ EXAMPLE_CHECKS = {
 def phase_examples(checks):
     import runpy
     print('== 31. the examples_torch scripts on the card', flush=True)
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        'examples_torch')
+    root = os.path.join(REPO, 'examples_torch')
     for script, ok in EXAMPLE_CHECKS.items():
         t0 = time.perf_counter()
         result = runpy.run_path(os.path.join(root, script))['main']()
@@ -4302,155 +2997,8 @@ def phase_examples(checks):
                      f'{result} in {time.perf_counter() - t0:.3f} s')
 
 
-ADAM_LR = 1e-3
-
-
-def adam_leaves(model):
-    """Fresh leaves of `model`'s parameters' shapes and dtypes on the card,
-    each with a gradient: normal draws of one card generator."""
-    gen = torch.Generator(device='cuda').manual_seed(11)
-    leaves = []
-    for p in model.parameters():
-        leaf = torch.randn(p.shape, generator=gen,
-                           device='cuda').to(p.dtype).requires_grad_()
-        leaf.grad = torch.randn(p.shape, generator=gen,
-                                device='cuda').to(p.dtype)
-        leaves.append(leaf)
-    return leaves
-
-
-def adam_agree(a, b):
-    """(ok, max abs err, share of elements apart) of K11's tensor a
-    against the plain version's b after one step from the same state:
-    float32 within rtol 1e-6 and atol 1e-7 (the card fuses multiply-adds
-    in K11 and multiplies by 1 / sqrt(1 - b2^t) where the plain version
-    divides); bfloat16, the same float32 values rounded once, apart on at
-    most 1e-3 of the elements (values that straddle a rounding boundary),
-    by one ulp or, where m cancels towards 0, by at most 1e-6, far under
-    a bfloat16 ulp of its terms."""
-    err = max_abs_err(a, b)
-    share = float((a != b).float().mean())
-    if a.dtype == torch.float32:
-        return torch.allclose(a, b, rtol=1e-6, atol=1e-7), err, share
-    a, b = a.float(), b.float()
-    big = torch.maximum(a.abs(), b.abs()).clamp_min(2. ** -126)
-    apart = (a - b).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
-    near = (apart <= 1) | ((a - b).abs() <= 1e-6)
-    return bool(near.all()) and share <= 1e-3, err, share
-
-
-def adam_step_ms(fn):
-    """(device ms of one fn() call, K11 events a call): the profiler's
-    durations of every device event (`events_by_name`), and how many of
-    them are K11's (None where the profiler recorded no count)."""
-    ev = events_by_name(fn)
-    k11 = [n for name, (_, n) in ev.items() if 'adam_fused_kernel' in name]
-    return (sum(ms for ms, _ in ev.values()),
-            None if None in k11 else round(sum(k11)))
-
-
-def phase_adam(checks, res):
-    print('== 32. Adam: K11 vs its plain version, torch.optim.Adam fused '
-          '(library) and foreach (the earlier form)', flush=True)
-    # K11's launches a step: config #3's float32 trunk and bfloat16 head,
-    # the flagship's float32 leaves each by the 'vec' body; SynthStrip's 54
-    # float32 leaves in one launch with a 1-element bias, so the scalar body
-    # runs beside the 'vec' one
-    cases = (('config #3', lambda: config3(LC_VOL, torch.bfloat16),
-              {'adam': 2, 'adam_vec': 2, 'adam_scalar': 0}),
-             ('flagship', flagship,
-              {'adam': 1, 'adam_vec': 1, 'adam_scalar': 0}),
-             ('SynthStrip', lambda: synthstrip(VOL),
-              {'adam': 1, 'adam_vec': 0, 'adam_scalar': 1}))
-    for label, make, want in cases:
-        per_step = want['adam']
-        leaves = adam_leaves(make())
-        numel = sum(p.numel() for p in leaves)
-        nbytes = sum(7 * p.numel() * p.element_size() for p in leaves)
-        bound = bound_ms(nbytes, 12. * numel)[0]
-        print(f'  {label}: {len(leaves)} leaves, {numel} parameters '
-              f'({", ".join(sorted({str(p.dtype) for p in leaves}))}), '
-              f'{nbytes} bytes a step read and written once, bound '
-              f'{bound:.4f} ms', flush=True)
-        opt = adam.Adam(leaves, lr=ADAM_LR)
-        twins = [(p.detach().clone(), torch.zeros_like(p), torch.zeros_like(p))
-                 for p in leaves]
-        _build.launches.clear()
-        ok, err, share = True, 0., 0.
-        for t in range(1, 4):
-            # the plain version steps from K11's state: one step's gap
-            for p, (q, m, v) in zip(leaves, twins):
-                q.copy_(p.detach())
-                if t > 1:
-                    m.copy_(opt.state[p]['exp_avg'])
-                    v.copy_(opt.state[p]['exp_avg_sq'])
-            opt.step()
-            for p, (q, m, v) in zip(leaves, twins):
-                adam._adam_plain(q, p.grad, m, v, float(t), ADAM_LR, 0.9,
-                                 0.999, 1e-8)
-                s = opt.state[p]
-                for a, b in ((p.detach(), q), (s['exp_avg'], m),
-                             (s['exp_avg_sq'], v)):
-                    good, e, sh = adam_agree(a, b)
-                    ok, err, share = ok and good, max(err, e), max(share, sh)
-        torch.cuda.synchronize()
-        ran = {k: _build.launches[k] for k in want}
-        checks.check(f'adam {label} launches',
-                     ran == {k: 3 * n for k, n in want.items()},
-                     f'{ran} in 3 steps (expected {want} a step)')
-        checks.check(f'adam {label}: K11 vs plain, 3 steps', ok,
-                     f'max abs err {err:.4g}, largest share of a tensor '
-                     f'apart {share:.3g} (each step from the same '
-                     f'state; float32 rtol 1e-6, atol 1e-7; bfloat16 one '
-                     f'ulp or 1e-6 on at most 1e-3)')
-        del twins
-        plain_state = [(torch.zeros_like(p), torch.zeros_like(p))
-                       for p in leaves]
-
-        def plain():
-            for p, (m, v) in zip(leaves, plain_state):
-                adam._adam_plain(p.detach(), p.grad, m, v, 1., ADAM_LR, 0.9,
-                                 0.999, 1e-8)
-        forms = {'K11': opt.step,
-                 'foreach': torch.optim.Adam(leaves, lr=ADAM_LR,
-                                             foreach=True).step}
-        turns = {k: [] for k in forms}
-        for k in ('foreach', 'K11', 'K11', 'foreach'):   # in turns
-            turns[k].append((*adam_step_ms(forms[k]), call_ms(forms[k])))
-        library = torch.optim.Adam(leaves, lr=ADAM_LR, fused=True)
-        lib_ms, _ = adam_step_ms(library.step)
-        p_ms, _ = adam_step_ms(plain)
-        # a reading whose K11 events the profiler did not all record is
-        # left out
-        valid = [ms for ms, n, _ in turns['K11'] if n == per_step]
-        k_ms = statistics.mean(valid) if valid else None
-        print(f'  adam {label}, device ms of a step (K11 events a step; one '
-              f'call with its host launch): '
-              + '; '.join(f'{k} {ms:.4f} ({n}; {c:.4f})'
-                          for k in ('foreach', 'K11')
-                          for ms, n, c in turns[k])
-              + f'; fused torch.optim.Adam (library) {lib_ms:.4f}; '
-              f'plain {p_ms:.4f}; bound {bound:.4f}', flush=True)
-        if k_ms is None:
-            print(f'  adam {label}: K11 not measured (the profiler recorded '
-                  f'other than {per_step} K11 event(s) a step)')
-        else:
-            print(f'  adam {label}: K11 {k_ms:.4f} ms at '
-                  f'{100 * bound / k_ms:.1f} % of its bound, {per_step} '
-                  f'launch(es) a step'
-                  + (f' (its {nbytes} bytes stay in the {L2_BYTES:.0f}-byte '
-                     f'L2 when timed back to back)' if nbytes < L2_BYTES
-                     else ''), flush=True)
-        if label == 'config #3':
-            res['adam'].update(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                               library_ms=lib_ms)
-            add_bound(res['adam'], nbytes, 12. * numel)
-        del opt, forms, library, plain_state, leaves
-        torch.cuda.empty_cache()
-
-
-def report_profile(label, fn, first, calls=PROFILE_STEPS):
-    """Wall time, device busy time and idle share of `calls` calls
+def report_profile(label, fn, first):
+    """Wall time, device busy time and idle share of PROFILE_STEPS calls
     fn(first), fn(first + 1), ..., and the device time by kernel; returns
     the idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -4458,25 +3006,26 @@ def report_profile(label, fn, first, calls=PROFILE_STEPS):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(calls):
+        for i in range(PROFILE_STEPS):
             fn(first + i)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = device_events(prof)
     busy = sum(ms for ms, _, _ in rows)
     n = sum(c for _, c, _ in rows)
-    print(f'  profile, {label}, {calls} calls: wall {wall:.3f} ms, '
-          f'device busy {busy:.3f} ms, {n // calls} device events '
+    print(f'  profile, {label}, {PROFILE_STEPS} calls: wall {wall:.3f} ms, '
+          f'device busy {busy:.3f} ms, {n // PROFILE_STEPS} device events '
           f'per call, idle share {1 - busy / wall:.4f}')
     for ms, c, key in sorted(rows, reverse=True)[:25]:
-        print(f'    {ms / calls:9.4f} ms/call {c // calls:5d}'
+        print(f'    {ms / PROFILE_STEPS:9.4f} ms/call {c // PROFILE_STEPS:5d}'
               f'/call  {key[:90]}')
     return 1 - busy / wall
 
 
 def parse_phases(argv):
     """The phases named by --phases (a comma list; all when it is absent).
-    Phase 1 runs whatever is named: it finds the card."""
+    Phase 1 runs whatever is named: it finds the card. A kernel phase that
+    became a card test is refused with the test file that holds it."""
     ap = argparse.ArgumentParser(
         description='Smoke test of neurite_tpu_torch on one NVIDIA GPU.')
     ap.add_argument('--phases', default=','.join(PHASES),
@@ -4484,6 +3033,12 @@ def parse_phases(argv):
                          + ','.join(PHASES) + ' (default: all)')
     names = [p.strip() for p in ap.parse_args(argv).phases.split(',')
              if p.strip()]
+    moved = [p for p in names if p in CARD_TESTS]
+    if moved:
+        ap.error('; '.join(
+            f'phase {p} is now `python -m pytest --noconftest -p '
+            f'no:cacheprovider -m cuda {CARD_TESTS[p]}` (phase 33 runs '
+            f'every card test)' for p in moved))
     bad = [p for p in names if p not in PHASES]
     if bad or not names:
         ap.error(f'unknown phases {bad}: choose from {",".join(PHASES)}')
@@ -4494,88 +3049,43 @@ def main(argv=None):
     run = parse_phases(argv)
     card = phase_device()
     checks = Checks()
-    res = {n: {'name': n, 'route': 'cuda', 'source': src, 'replaces': rep,
-               'launches': 0, 'body_launches': {}, 'max_abs_err': 0.,
-               'ms': 0., 'plain_ms': 0., 'bound_ms': 0., 'bound_by': None,
-               'library_ms': 0., 'paths': {}}
-           for n, (src, rep, _, _) in KERNELS.items()}
     build = f'{phase_build():.3f} s' if '2' in run else 'not run (phase 2)'
     phases = {
-        '3': lambda: phase_pool(checks, res),
-        '4': lambda: phase_dice(checks, res),
+        '33': lambda: phase_card_tests(checks),
         '5': lambda: phase_parity(checks, *flagship_inputs()),
-        '6': lambda: phase_train(checks, res, *flagship_inputs()),
-        '7': lambda: phase_interpn(checks, res),
-        '8': lambda: phase_blur(checks, res),
+        '6': lambda: phase_train(checks, *flagship_inputs()),
         '9a': lambda: phase_synth_check(checks),
-        '9': lambda: phase_synth_train(checks, res),
-        '10': lambda: phase_lc(checks, res),
+        '9': lambda: phase_synth_train(checks),
         '11': lambda: phase_lc_check(checks),
-        '12': lambda: phase_lc_train(checks, res),
-        '13': lambda: phase_mi(checks, res),
+        '12': lambda: phase_lc_train(checks),
         '14': lambda: phase_reg_check(checks),
-        '15': lambda: phase_reg_train(checks, res),
+        '15': lambda: phase_reg_train(checks),
         '16': lambda: phase_strip_check(checks),
-        '17': lambda: phase_strip_train(checks, res),
+        '17': lambda: phase_strip_train(checks),
         '18': lambda: phase_vae_check(checks),
-        '19': lambda: phase_vae_train(checks, res),
+        '19': lambda: phase_vae_train(checks),
         '20': lambda: phase_sparse_check(checks),
         '21': lambda: phase_sparse_train(checks),
-        '22': lambda: phase_s2d(checks, res),
-        '23': lambda: phase_remat(checks, res),
-        '24': lambda: phase_serve(checks, res),
-        '25': lambda: phase_classify(checks, res),
-        '26': lambda: phase_disk(checks, res),
+        '22': lambda: phase_s2d(checks),
+        '23': lambda: phase_remat(checks),
+        '24': lambda: phase_serve(checks),
+        '25': lambda: phase_classify(checks),
+        '26': lambda: phase_disk(checks),
         '27': lambda: phase_feed(checks),
-        '28': lambda: phase_dp(checks, res, card),
-        '29': lambda: phase_halo(checks, res, card),
-        '30': lambda: phase_space(checks, res, card),
+        '28': lambda: phase_dp(checks, card),
+        '29': lambda: phase_halo(checks, card),
+        '30': lambda: phase_space(checks, card),
         '31': lambda: phase_examples(checks),
-        '32': lambda: phase_adam(checks, res),
     }
     for name, fn in phases.items():
         if name in run:
             fn()
-    # a field that no phase of this run measured is null, not its start value
-    for n, (_, _, measure, count) in KERNELS.items():
-        if measure not in run:
-            res[n].update(dict.fromkeys(MEASURED))
-        if count not in run:
-            res[n].update(launches=None, body_launches=None)
-    for path, (phase, names) in PATH_RUNS.items():
-        if phase not in run:
-            for n in names:
-                res[n]['paths'][path] = None
     ran = ",".join(p for p in PHASES if p in run)
     print(f'phases run: {ran}'
           + ('' if len(run) == len(PHASES) else
-             ' (a subset: the kernels line holds null for what they did not '
-             'measure, and the run does not stand for the whole smoke test)'))
-    print(f'card: {card}; kernel build {build}; each kernel\'s ms, '
-          f'plain_ms, library_ms and bound_ms sum its calls of one step: the '
-          f'three bf16 pool shapes, 5 linear 64^3 and 1 nearest 128^3 '
-          f'interpolations, 2 blurs of [3, 64^3] (41 taps) and one each of '
-          f'[1, 128^3] (165 and 7 taps; library: three conv3d calls but for '
-          f'7 taps), one LC call each at the config #3 head (bf16), one MI '
-          f'histogram call at [1, 128^3] with 16 bins, one Adam step (K11) '
-          f'at config #3\'s leaves; K1-K3 launches are '
-          f'the flagship run\'s, K4 and K6 config #5\'s, K7-K9 and K11 '
-          f'config #3\'s, '
-          f'K10 the MI registration run\'s; `paths` gives K1, K2, K4 and K6 '
-          f'launches on the SynthStrip run (phase 17), K1 and K2 on the '
-          f'config #4 run (phase 19), K1-K3 on the space_to_depth and '
-          f'remat flagship runs (phases 22 and 23), K1 on one serve volume '
-          f'(phase 24), K1-K2 on one EncoderNet step (phase 25), K1-K3 '
-          f'on the flagship trained from disk (phase 26), each rank\'s '
-          f'K1-K3 on 10 data-parallel steps (phase 28, `dp`) and each '
-          f'rank\'s K3, K4, K6 and K7-K9 on one run of the halo ops '
-          f'(phase 29, `halo`), each rank\'s K1-K3 on 10 z-sharded flagship '
-          f'steps (phase 30, `space`) and K1-K3 and K7-K9 on 10 z-sharded '
-          f'config #3 steps (phase 30, `space_lc`)')
+             ' (a subset: the run does not stand for the whole smoke test)'))
+    print(f'card: {card}; kernel build {build}')
     subset = {} if len(run) == len(PHASES) else {'phases': ran}
-    print(json.dumps({'kernels': [{k: v for k, v in r.items()
-                                   if not k.startswith('_')}
-                                  for r in res.values()], **subset}))
     if checks.failed:
         print(f'FAILED: {checks.failed}', flush=True)
         sys.exit(1)

@@ -4,9 +4,10 @@ CPU, from the same parameters and gradients: a float32 and a bfloat16
 group in one optimizer over three steps, each group holding aligned
 tensors, a ragged length, an unaligned view and (float32) a channels-last
 parameter, several tensors a launch; a group past the table's 64 rows,
-its moments replaced before a fourth step; and a float32 tensor past 2^31
-bytes. Imports
-no JAX, so that it runs on the machine with the card:
+its moments replaced before a fourth step; a float32 tensor past 2^31
+bytes; and the leaves of config #3, the flagship and SynthStrip against
+the plain version on the card. Imports no JAX, so that it runs on the
+machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_adam_cuda.py
 """
@@ -14,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+import neurite_tpu_torch as nt  # noqa: E402
 from neurite_tpu_torch.ops import _build, adam  # noqa: E402
 
 LR = 1e-2
@@ -53,7 +55,8 @@ def _agree(card, host, dtype):
     at most 1e-3 of the elements, those where the two float32 values
     straddle a rounding boundary, one ulp apart, or, where m cancels
     towards 0, far under a bfloat16 ulp of its terms: 1e-6."""
-    card, host = card.detach().cpu().float(), host.detach().float()
+    card = card.detach().to(host.device).float()
+    host = host.detach().float()
     if dtype == torch.float32:
         err = float((card - host).abs().max())
         return (torch.allclose(card, host, rtol=1e-6, atol=1e-7),
@@ -176,3 +179,71 @@ def test_tensor_past_2_31_bytes(cuda):
     for got, ref in ((p.detach(), want), (opt.state[p]['exp_avg'], m),
                      (opt.state[p]['exp_avg_sq'], v)):
         assert torch.allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+def _path_leaves(path):
+    """(shape, dtype) of each parameter of a path's model: config #3 at
+    160^3 (a float32 trunk, a bfloat16 head of 446M parameters), the
+    flagship UNet at 128^3 (float32), SynthStrip at 128^3 (54 float32
+    leaves, one bias of 1 element)."""
+    if path == 'config3':
+        model = nt.models.unet_lc(input_shape=(160,) * 3 + (1,),
+                                  dtype=torch.bfloat16,
+                                  param_dtype=torch.bfloat16, device='cpu')
+    elif path == 'flagship':
+        model = nt.models.unet(
+            nb_features=16, input_shape=(128,) * 3 + (1,), nb_levels=4,
+            conv_size=3, nb_labels=4, feat_mult=2, nb_conv_per_level=2,
+            device='cpu')
+    else:
+        model = nt.models.SynthStrip(
+            inshape=(128,) * 3, labels_in=range(16),
+            labels_out={lab: 1 for lab in range(1, 12)},
+            nb_unet_features=[16, 32, 64, 64, 64, 64, 64],
+            nb_unet_conv_per_level=2, device='cpu')
+    return [(p.shape, p.dtype) for p in model.parameters()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path,want', [
+    # the trunk's float32 group and the head's bfloat16 one
+    ('config3', {'adam': 2, 'adam_vec': 2, 'adam_scalar': 0}),
+    ('flagship', {'adam': 1, 'adam_vec': 1, 'adam_scalar': 0}),
+    # one launch with a 1-element bias: the 'scalar' body beside the 'vec'
+    ('synthstrip', {'adam': 1, 'adam_vec': 0, 'adam_scalar': 1}),
+])
+def test_kernel_matches_plain_at_path_leaves(cuda, path, want):
+    """Leaves of a path's shapes and dtypes drawn on the card with their
+    gradients: three steps at lr 1e-3, each against the plain version on
+    the card from K11's state; K11's launches a step and their bodies
+    exactly those."""
+    lr = 1e-3
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    leaves = []
+    for shape, dtype in _path_leaves(path):
+        leaf = torch.randn(shape, generator=gen,
+                           device=cuda).to(dtype).requires_grad_()
+        leaf.grad = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+        leaves.append(leaf)
+    opt = adam.Adam(leaves, lr=lr)
+    twins = [(p.detach().clone(), torch.zeros_like(p), torch.zeros_like(p))
+             for p in leaves]
+    before = dict(_build.launches)
+    for step in range(1, 4):
+        for p, (q, m, v) in zip(leaves, twins):
+            q.copy_(p.detach())
+            if step > 1:
+                m.copy_(opt.state[p]['exp_avg'])
+                v.copy_(opt.state[p]['exp_avg_sq'])
+        opt.step()
+        for p, (q, m, v) in zip(leaves, twins):
+            adam._adam_plain(q, p.grad, m, v, float(step), lr, 0.9, 0.999,
+                             1e-8)
+            s = opt.state[p]
+            for name, a, b in (('p', p, q), ('exp_avg', s['exp_avg'], m),
+                               ('exp_avg_sq', s['exp_avg_sq'], v)):
+                ok, detail = _agree(a, b, p.dtype)
+                assert ok, (path, step, tuple(p.shape), name, detail)
+    torch.cuda.synchronize()
+    ran = {k: _build.launches[k] - before.get(k, 0) for k in want}
+    assert ran == {k: 3 * n for k, n in want.items()}

@@ -5,8 +5,7 @@ against the JAX package's: `core.separable_conv` (the XLA path) and the
 fused Pallas blur in interpret mode, at tap widths 1, 3 and 7 and at a width
 longer than its axis; dx and the tap gradients against the JAX VJP; and
 `gaussian_kernel` at a fixed sigma. The summation orders differ, so the
-tolerance is 1e-5 of max|x|. On the card, K6 must agree with the plain
-version within the same tolerance.
+tolerance is 1e-5 of max|x|. K6 on the card: `test_torch_blur_cuda.py`.
 """
 import numpy as np
 import pytest
@@ -20,13 +19,9 @@ from neurite_tpu.ops import blur as jblur  # noqa: E402
 from neurite_tpu.utils import core as jcore  # noqa: E402
 import neurite_tpu_torch as nt  # noqa: E402
 from neurite_tpu_torch.ops import _build, blur, blur_cuda  # noqa: E402
+from test_torch_blur_cuda import _taps  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _taps(seed, widths):
-    rng = np.random.default_rng(seed)
-    return [rng.uniform(0.1, 1., size=w).astype(np.float32) for w in widths]
 
 
 def _close(got, want, scale):
@@ -246,60 +241,3 @@ def test_plan_takes_every_width_up_to_6144_taps():
             p = blur_cuda.plan(shape, axis, width)
             assert p.smem <= blur_cuda.SMEM_LIMIT
             assert p.chunk == width or p.chunk % 4 == 0
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('shape,axis,width', [
-    ((2, 21, 5, 6), 1, 7),        # L not a multiple of 8, post 30
-    ((3, 7, 5, 29), 3, 41),       # post 1, pre 105 not a multiple of 32
-    ((2, 6, 5, 11), 2, 1),        # one tap
-    ((1, 20, 9, 40), 1, 165),     # 165 taps on a 20-voxel axis
-    ((1, 1000, 3, 3), 1, 165),    # halo tiles
-    ((1, 3, 2, 500), 3, 2001),    # halo tiles, taps in chunks
-])
-def test_kernel_pass_matches_plain_on_card(cuda, shape, axis, width):
-    """One K6 pass at ragged shapes, by the body `plan` names."""
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        rng = np.random.default_rng(12)
-        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
-            cuda)
-        k = torch.from_numpy(_taps(13, [width])[0]).to(cuda)
-        before = _build.launches['blur_whole']
-        got = blur_cuda.blur_axis(x, k, axis)
-        want = nt.utils.core.conv_axis(x, k, axis - 1)
-        torch.cuda.synchronize()
-        whole = blur_cuda.plan(shape, axis, width).body == 'whole'
-        assert _build.launches['blur_whole'] == before + whole
-        assert float((got - want).abs().max()) <= 1e-5 * float(
-            want.abs().max())
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('widths', [(7, 7, 7), (41, 3, 1), (165, 165, 165)])
-def test_kernel_matches_plain_on_card(cuda, widths):
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        rng = np.random.default_rng(10)
-        x = torch.from_numpy(rng.normal(size=(2, 20, 33, 40)).astype(
-            np.float32)).to(cuda)
-        ks = [torch.from_numpy(k).to(cuda) for k in _taps(11, widths)]
-        before = _build.launches['blur']
-        k = nt.ops.separable_blur3d(x, ks)
-        p = blur._plain(x, ks)
-        torch.cuda.synchronize()
-        assert _build.launches['blur'] == before + 3
-        assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32

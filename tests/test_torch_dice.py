@@ -13,16 +13,10 @@ import jax.numpy as jnp  # noqa: E402
 import neurite_tpu as ne  # noqa: E402
 from neurite_tpu import ops as jops  # noqa: E402
 import neurite_tpu_torch as nt  # noqa: E402
-from neurite_tpu_torch.ops import _build, dice_red  # noqa: E402
+from neurite_tpu_torch.ops import dice_red  # noqa: E402
+from test_torch_dice_cuda import _maps  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _maps(seed, shape):
-    rng = np.random.default_rng(seed)
-    x = rng.random(shape).astype(np.float32)
-    y = rng.random(shape).astype(np.float32)
-    return x, y
 
 
 def _torch_sums_and_grads(x, y, w, impl):
@@ -189,31 +183,3 @@ def test_dice_plan(shape, ptrs, want):
     assert 1 <= p.fin <= p.nblk
     assert p.fin * min(3 * l4 * bs, p.threads) <= p.threads
     assert p.nblk <= max(1, -(-dice_red.BLOCKS // bs))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(2, 1000, 3), (1, 4096, 4), (3, 17, 300),
-                                   (3, 17, 299), (1, 64 ** 3, 16),
-                                   (2, 1000, 8), (2, 100000, 8),
-                                   (3, 50, 12)])
-def test_dice_kernel_matches_plain_on_card(cuda, shape):
-    x, y = (torch.from_numpy(a).to(cuda) for a in _maps(4, shape))
-    before = _build.launches['dice_sums_vec']
-    k = dice_red.dice_sums_cuda(x, y)
-    vec = shape[2] % 4 == 0
-    assert _build.launches['dice_sums_vec'] == before + vec
-    p = dice_red._dice_sums_plain(x, y)
-    torch.cuda.synchronize()
-    for a, b in zip(k, p):
-        # rtol 1e-5: another summation order
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=0.)
-    # a fixed order of additions: the same bits on the next call
-    for a, b in zip(k, dice_red.dice_sums_cuda(x, y)):
-        assert torch.equal(a, b)

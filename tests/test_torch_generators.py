@@ -23,6 +23,7 @@ from neurite_tpu import generators as jg  # noqa: E402
 from neurite_tpu import io as jio  # noqa: E402
 from neurite_tpu_torch import dataproc as tproc  # noqa: E402
 from neurite_tpu_torch import generators as tg  # noqa: E402
+from test_torch_generators_cuda import _prefetch_threads  # noqa: E402
 
 LABELS = [0, 2, 3, 41]
 SHAPE = (8, 10, 6)
@@ -381,10 +382,6 @@ def _counting(counter):
         i += 1
 
 
-def _prefetch_threads():
-    return [t for t in threading.enumerate() if t.name == 'prefetch_to_device']
-
-
 @pytest.mark.parametrize('how', ['close', 'break'])
 def test_prefetch_close_stops_the_producer(how):
     seen = []
@@ -431,22 +428,4 @@ def test_prefetch_order_under_thread_switches():
     finally:
         sys.setswitchinterval(old)
     assert out == list(range(300))
-    assert not _prefetch_threads()
-
-
-@pytest.mark.cuda
-def test_prefetch_cuda_pinned_copies_are_bit_equal():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    host = [(np.random.default_rng(i).normal(size=(1, 64, 64, 64, 1))
-             .astype(np.float16),
-             np.random.default_rng(i).random((1, 64, 64, 64, 4)) > .5)
-            for i in range(5)]
-    gen = tg.prefetch_to_device(iter(host), size=2)
-    for h, (x, y) in zip(host, gen):
-        assert x.is_cuda and y.is_cuda
-        torch.cuda.synchronize()
-        np.testing.assert_array_equal(x.cpu().numpy(), h[0])
-        np.testing.assert_array_equal(y.cpu().numpy(), h[1])
-    gen.close()
     assert not _prefetch_threads()

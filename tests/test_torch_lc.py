@@ -10,11 +10,13 @@ computed once (module-scoped caches): an interpret call costs seconds here.
 
 Tolerances: float32 within rtol 1e-5 and atol 1e-5 (the sums run in
 another order than XLA's); bfloat16 outputs within one bf16 ulp of JAX's,
-and dk at B=1 equal (both round the same float32 product once). On the
-card (`cuda` tests) the kernels must equal the plain versions, each body
-of K7, K8 and K9 (`lc_cuda.fwd_body`, `dk_body`, `dx_body`: 16-byte rows
-of voxels a thread, K8's keras row body, or one voxel) included.
+and dk at B=1 equal (both round the same float32 product once). The
+choosers `lc_cuda.fwd_body`, `dk_body` and `dx_body` are held to their
+bodies from shapes and layouts; the kernels on the card:
+`test_torch_lc_cuda.py`.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -27,30 +29,13 @@ from neurite_tpu.ops import lc_tap as jtap  # noqa: E402
 from neurite_tpu.ops import pallas_lc as jv1  # noqa: E402
 from neurite_tpu.ops import pallas_lc2 as jv2  # noqa: E402
 from neurite_tpu_torch.ops import _build, lc_cuda, lc_tap  # noqa: E402
+from test_torch_lc_cuda import CASES, DK_BODIES  # noqa: E402
+from test_torch_lc_cuda import _inputs as _card_inputs  # noqa: E402
 
 torch.set_num_threads(1)
 
-# (B, spatial, C, O, kernel_size, padding): every value of each knob
-CASES = [
-    (1, (5, 6, 7), 1, 1, (3, 3, 3), 'same'),
-    (3, (5, 6, 7), 3, 2, (3, 3, 3), 'valid'),
-    (1, (6, 5, 4), 3, 1, (3, 1, 3), 'valid'),
-    (3, (4, 6, 5), 1, 2, (3, 1, 3), 'same'),
-    (1, (5, 5, 6), 3, 2, (3, 3, 3), 'same'),
-    (3, (6, 4, 5), 1, 1, (3, 3, 3), 'valid'),
-]
-
-
-def _inputs(seed, B, sp, C, O, ks, padding, bf16=False):
-    rng = np.random.default_rng(seed)
-    out = jtap._out_shape(sp, ks, padding)
-    x = rng.normal(size=(B, *sp, C)).astype(np.float32)
-    k = rng.normal(size=(O, int(np.prod(ks)) * C, int(np.prod(out))))
-    g = rng.normal(size=(B, *out, O)).astype(np.float32)
-    if bf16:  # values that bfloat16 holds exactly
-        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
-        k = np.asarray(jnp.asarray(k, jnp.bfloat16).astype(jnp.float32))
-    return x, k.astype(np.float32), g
+# the cases' shapes from the reference, not from the code under test
+_inputs = functools.partial(_card_inputs, out_shape=jtap._out_shape)
 
 
 def _jax_vjp(fn, x, k, g, dtype=jnp.float32):
@@ -269,67 +254,6 @@ def _dk_args(x_shape, O, dtype, keras=False, ks=(3, 3, 3), padding='same',
     return x, lc_cuda._weight_view(dk, keras)
 
 
-DK_BODIES = {   # name: (x_shape, O, dtype, keras, padding, ks,
-                #        the bodies of K8, K7 and K9)
-    # the config #3 head: Wo = 160, a multiple of 8 bf16 or 4 f32 voxels
-    'head_bf16': ((1, 160, 160, 160, 4), 1, torch.bfloat16, False, 'same',
-                  (3, 3, 3), ('row', 'row', 'row')),
-    'head_f32': ((1, 160, 160, 160, 4), 1, torch.float32, False, 'same',
-                 (3, 3, 3), ('row', 'row', 'row')),
-    'row_o2_bf16': ((1, 5, 6, 16, 4), 2, torch.bfloat16, False, 'same',
-                    (3, 3, 3), ('row', 'row', 'row')),
-    # 'valid': Wo = 12, 4 f32 voxels fit a row, 8 bf16 ones do not; K9's
-    # row body takes 'same' only
-    'row_valid_f32': ((1, 5, 6, 14, 4), 1, torch.float32, False, 'valid',
-                      (3, 3, 3), ('row', 'row', 'voxel')),
-    'row_valid_bf16': ((1, 5, 6, 14, 4), 1, torch.bfloat16, False, 'valid',
-                       (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'b3_o2_bf16': ((3, 32, 32, 32, 4), 2, torch.bfloat16, False, 'same',
-                   (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'b3_o2_f32': ((3, 32, 32, 32, 4), 2, torch.float32, False, 'same',
-                  (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    # the keras layout: K8, K7 and K9 by their keras row bodies at the
-    # head's B = 1, C = 4, O = 1 and ky, kx <= 3 (K9 'same' only), else by
-    # their one-voxel bodies
-    'keras_head': ((1, 160, 160, 160, 4), 1, torch.bfloat16, True, 'same',
-                   (3, 3, 3), ('keras_row', 'keras_row', 'keras_row')),
-    'keras_valid_f32': ((1, 6, 7, 9, 4), 1, torch.float32, True, 'valid',
-                        (3, 3, 3), ('keras_row', 'keras_row', 'voxel')),
-    'keras_b3_o2': ((3, 32, 32, 32, 4), 2, torch.float32, True, 'same',
-                    (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'keras_o2': ((1, 6, 7, 9, 4), 2, torch.bfloat16, True, 'same',
-                 (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'keras_c3': ((1, 6, 7, 9, 3), 1, torch.bfloat16, True, 'same',
-                 (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'keras_kx5': ((1, 6, 6, 16, 4), 1, torch.bfloat16, True, 'same',
-                  (3, 3, 5), ('voxel', 'voxel', 'voxel')),
-    'keras_c16_o4': ((1, 4, 4, 8, 16), 4, torch.float32, True, 'same',
-                     (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    # 32 voxels of TC = 396 float32 weights pass 48 KB of shared memory;
-    # bfloat16 ones fit; K9 stages one tz at a time, whatever kz
-    'keras_big_tile_f32': ((1, 12, 4, 8, 4), 1, torch.float32, True,
-                           'same', (11, 3, 3), ('voxel', 'voxel', 'keras_row')),
-    'keras_kz11_bf16': ((1, 12, 4, 8, 4), 1, torch.bfloat16, True, 'same',
-                        (11, 3, 3), ('keras_row', 'keras_row', 'keras_row')),
-    # TC = 360 float32: 32 voxels' tiles fit, 45 KB
-    'keras_kz10_f32': ((1, 11, 4, 8, 4), 1, torch.float32, True, 'same',
-                       (10, 3, 3), ('keras_row', 'keras_row', 'keras_row')),
-    # a z-plane of H W TC = 4096^2 x 396 weights passes 32-bit offsets
-    'keras_big_plane': ((1, 2, 4096, 4096, 4), 1, torch.bfloat16, True,
-                        'same', (11, 3, 3), ('keras_row', 'keras_row',
-                                             'voxel')),
-    # Wo = 19: a thread's voxels would cross rows
-    'ragged_bf16': ((1, 15, 17, 19, 4), 1, torch.bfloat16, False, 'same',
-                    (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'ragged_f32': ((1, 15, 17, 19, 4), 1, torch.float32, False, 'same',
-                   (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'c3_bf16': ((1, 16, 17, 16, 3), 1, torch.bfloat16, False, 'same',
-                (3, 3, 3), ('voxel', 'voxel', 'voxel')),
-    'kx5_bf16': ((1, 6, 6, 16, 4), 1, torch.bfloat16, False, 'same',
-                 (3, 3, 5), ('voxel', 'voxel', 'voxel')),
-}
-
-
 @pytest.mark.parametrize('case', sorted(DK_BODIES))
 def test_dk_body_picks_by_layout_and_shape(case):
     """K8's row body takes batch 1, 4 channels, kx <= 3 and whole 16-byte
@@ -446,214 +370,3 @@ def test_fwd_dx_keras_row_need_keras_head(dtype):
                        ((3, 4, 5, 6, 4), 1)):
         xo, vo = _dk_args(x_shape, O, dtype, keras=True, device='cpu')
         assert bodies(xo, vo) == ('voxel', 'voxel')
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', CASES[:3], ids=str)
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_kernels_equal_plain_on_card(cuda, case, dtype):
-    """K7, K8 and K9 against their plain versions on the card: equal."""
-    B, sp, C, O, ks, padding = case
-    x, k, g = (torch.from_numpy(a).to(cuda) for a in _inputs(6, *case))
-    x, k = x.to(dtype), k.to(dtype)
-    for keras in (False, True):
-        kern = k.permute(2, 1, 0).contiguous() if keras else k
-        kv = lc_cuda._weight_view(kern, keras)
-        pairs = [
-            (lc_cuda.fwd_cuda(x, kv, ks, padding),
-             lc_cuda.fwd_plain(x, kv, ks, padding)),
-            (lc_cuda.dk_cuda(g, x, ks, padding, dtype, keras),
-             lc_cuda.dk_plain(g, x, ks, padding, dtype, keras)),
-            (lc_cuda.dx_cuda(g, kv, ks, padding, tuple(x.shape), dtype,
-                             keras),
-             lc_cuda.dx_plain(g, kv, ks, padding, tuple(x.shape), dtype,
-                              keras)),
-        ]
-        torch.cuda.synchronize()
-        for a, b in pairs:
-            assert a.dtype == b.dtype and a.shape == b.shape
-            assert torch.equal(a, b)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', ['row_o2_bf16', 'row_valid_f32',
-                                  'row_valid_bf16', 'b3_o2_bf16',
-                                  'b3_o2_f32', 'ragged_bf16', 'ragged_f32',
-                                  'c3_bf16', 'kx5_bf16'])
-def test_dk_bodies_equal_plain_on_card(cuda, case):
-    """Each K8 body against dk_plain on the card: equal, and the launch
-    counts show which body ran."""
-    x_shape, O, dtype, keras, padding, ks, (body, _, _) = DK_BODIES[case]
-    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
-    rng = np.random.default_rng(7)
-    x = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(
-        cuda, dtype)
-    g = torch.from_numpy(rng.normal(size=(x_shape[0], *out, O)).astype(
-        np.float32)).to(cuda)
-    _build.launches.clear()
-    got = lc_cuda.dk_cuda(g, x, ks, padding, dtype)
-    want = lc_cuda.dk_plain(g, x, ks, padding, dtype)
-    torch.cuda.synchronize()
-    assert _build.launches['lc_dk'] == 1
-    assert _build.launches['lc_dk_row'] == (body == 'row')
-    assert got.dtype == want.dtype and torch.equal(got, want)
-
-
-KERAS_CASES = {   # name: (x_shape, O, dtype, padding, ks, K8's body)
-    # the head's B = 1, C = 4 and O = 1 (one load and store a tap); V = 378:
-    # a ragged tail
-    'quad_bf16': ((1, 6, 7, 9, 4), 1, torch.bfloat16, 'same', (3, 3, 3),
-                  'keras_row'),
-    'quad_f32': ((1, 6, 7, 9, 4), 1, torch.float32, 'same', (3, 3, 3),
-                 'keras_row'),
-    'valid_bf16': ((1, 6, 7, 9, 4), 1, torch.bfloat16, 'valid', (3, 3, 3),
-                   'keras_row'),
-    'kz5_ky2_f32': ((1, 7, 6, 9, 4), 1, torch.float32, 'same', (5, 2, 3),
-                    'keras_row'),
-    # the one-voxel body in the keras layout
-    'b3_o2_f32': ((3, 5, 6, 7, 4), 2, torch.float32, 'same', (3, 3, 3),
-                  'voxel'),
-    'b2_bf16': ((2, 5, 6, 7, 4), 1, torch.bfloat16, 'same', (3, 3, 3),
-                'voxel'),
-    'c3_valid_bf16': ((1, 6, 7, 9, 3), 1, torch.bfloat16, 'valid',
-                      (3, 3, 3), 'voxel'),
-    'kx5_f32': ((1, 6, 6, 16, 4), 1, torch.float32, 'same', (3, 3, 5),
-                'voxel'),
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', sorted(KERAS_CASES))
-def test_dk_keras_row_equals_plain_on_card(cuda, case):
-    """K8 in the keras layout, by the body `dk_body` picks, against
-    dk_plain(keras=True) and against K8's one-voxel body on the card: equal
-    bits, and the launch counts show which body ran."""
-    x_shape, O, dtype, padding, ks, body = KERAS_CASES[case]
-    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
-    rng = np.random.default_rng(8)
-    x = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(
-        cuda, dtype)
-    g = torch.from_numpy(rng.normal(size=(x_shape[0], *out, O)).astype(
-        np.float32)).to(cuda)
-    _build.launches.clear()
-    got = lc_cuda.dk_cuda(g, x, ks, padding, dtype, keras=True)
-    assert _build.launches['lc_dk_keras_row'] == (body == 'keras_row')
-    want = lc_cuda.dk_plain(g, x, ks, padding, dtype, keras=True)
-    voxel = torch.empty_like(got)
-    lc_cuda._dk_launch(g, x, lc_cuda._weight_view(voxel, True), ks, padding,
-                       'voxel')
-    torch.cuda.synchronize()
-    ity = torch.int16 if dtype == torch.bfloat16 else torch.int32
-    assert got.shape == want.shape and got.dtype == want.dtype
-    assert torch.equal(got.view(ity), want.view(ity))
-    assert torch.equal(got.view(ity), voxel.view(ity))
-
-
-ROW_CASES = {   # name: (x_shape, O, padding, K7's and K9's bodies)
-    # V = 6528: a ragged last block, and warps that span two rows
-    'ragged_block': ((1, 16, 17, 24, 4), 1, 'same', 'row', 'row'),
-    'o2_32': ((1, 32, 32, 32, 4), 2, 'same', 'row', 'row'),
-    'valid': ((1, 16, 17, 18, 4), 1, 'valid', 'row', 'voxel'),
-    'w19': ((1, 15, 17, 19, 4), 1, 'same', 'voxel', 'voxel'),
-    'b3': ((3, 16, 17, 24, 4), 1, 'same', 'voxel', 'voxel'),
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', sorted(ROW_CASES))
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_fwd_dx_bodies_equal_plain_on_card(cuda, case, dtype):
-    """K7 and K9 against fwd_plain and dx_plain on the card, each body (and
-    K9's rounded products, round_q): equal, and the launch counts show
-    which body ran."""
-    x_shape, O, padding, fwd_want, dx_want = ROW_CASES[case]
-    ks = (3, 3, 3)
-    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
-    rng = np.random.default_rng(8)
-    x, k, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
-        cuda) for s in (x_shape, (O, 108, int(np.prod(out))),
-                        (x_shape[0], *out, O)))
-    x, k = x.to(dtype), k.to(dtype)
-    _build.launches.clear()
-    got = lc_cuda.fwd_cuda(x, k, ks, padding)
-    want = lc_cuda.fwd_plain(x, k, ks, padding)
-    torch.cuda.synchronize()
-    assert _build.launches['lc_fwd_row'] == (fwd_want == 'row')
-    assert torch.equal(got, want)
-    for round_q in (False, True):
-        _build.launches.clear()
-        got = lc_cuda.dx_cuda(g, k, ks, padding, x_shape, dtype, round_q)
-        want = lc_cuda.dx_plain(g, k, ks, padding, x_shape, dtype, round_q)
-        torch.cuda.synchronize()
-        assert _build.launches['lc_dx_row'] == (dx_want == 'row')
-        assert got.dtype == want.dtype and torch.equal(got, want)
-
-
-KERAS_FWD_DX_CASES = {   # name: (x_shape, padding, ks, K7's and K9's
-                         #        bodies in bf16, in f32)
-    # V = 378 (K7: 3 blocks of 128 output voxels, the last ragged)
-    'ragged': ((1, 6, 7, 9, 4), 'same', (3, 3, 3),
-               ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
-    # V = 990: H and W not multiples of K9's 8 x 16 tiles
-    'ragged_990': ((1, 9, 10, 11, 4), 'same', (3, 3, 3),
-                   ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
-    'valid': ((1, 6, 7, 9, 4), 'valid', (3, 3, 3),
-              ('keras_row', 'voxel'), ('keras_row', 'voxel')),
-    # kx = 2: a halo of one voxel along W
-    'kx2': ((1, 6, 7, 9, 4), 'same', (3, 3, 2),
-            ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
-    # an even kernel: low 'same' padding 0 along H
-    'kz5_ky2': ((1, 7, 6, 9, 4), 'same', (5, 2, 3),
-                ('keras_row', 'keras_row'), ('keras_row', 'keras_row')),
-    # TC = 396: K7's 32-voxel blocks in bf16, float32 past 48 KB; K9
-    # stages one tz at a time
-    'kz11': ((1, 12, 4, 8, 4), 'same', (11, 3, 3),
-             ('keras_row', 'keras_row'), ('voxel', 'keras_row')),
-}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', sorted(KERAS_FWD_DX_CASES))
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_fwd_dx_keras_row_equal_plain_on_card(cuda, case, dtype):
-    """K7 and K9 in the keras layout, by the bodies `fwd_body` and
-    `dx_body` pick, against fwd_plain and dx_plain (with and without
-    round_q) and against their one-voxel bodies on the card: equal bits,
-    and the launch counts show which body ran."""
-    x_shape, padding, ks, bf16_bodies, f32_bodies = KERAS_FWD_DX_CASES[case]
-    fwd_want, dx_want = bf16_bodies if dtype == torch.bfloat16 else f32_bodies
-    out = lc_tap._out_shape(x_shape[1:4], ks, padding)
-    rng = np.random.default_rng(9)
-    x, k, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
-        cuda) for s in (x_shape, (int(np.prod(out)), int(np.prod(ks)) * 4),
-                        (1, *out, 1)))
-    x, k = x.to(dtype), k.to(dtype)
-    kv = lc_cuda._weight_view(k, True)
-    _build.launches.clear()
-    got = lc_cuda.fwd_cuda(x, kv, ks, padding)
-    assert _build.launches['lc_fwd_keras_row'] == (fwd_want == 'keras_row')
-    voxel = torch.empty_like(got)
-    lc_cuda._fwd_launch(x, kv, voxel, ks, padding, 'voxel')
-    want = lc_cuda.fwd_plain(x, kv, ks, padding)
-    torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(got.view(torch.int32), voxel.view(torch.int32))
-    ity = torch.int16 if dtype == torch.bfloat16 else torch.int32
-    for round_q in (False, True):
-        _build.launches.clear()
-        got = lc_cuda.dx_cuda(g, kv, ks, padding, x_shape, dtype, round_q)
-        assert _build.launches['lc_dx_keras_row'] == (dx_want == 'keras_row')
-        voxel = torch.empty_like(got)
-        lc_cuda._dx_launch(g, kv, voxel, ks, padding, round_q, 'voxel')
-        want = lc_cuda.dx_plain(g, kv, ks, padding, x_shape, dtype, round_q)
-        torch.cuda.synchronize()
-        assert got.dtype == want.dtype
-        assert torch.equal(got.view(ity), want.view(ity))
-        assert torch.equal(got.view(ity), voxel.view(ity))

@@ -11,8 +11,8 @@ initializers must draw what flax draws (the std within 5 %). A config #3
 step (UNet trunk + LocallyConnected3D head, MSE, Adam 1e-4) at 16^3 in
 float32 must match JAX's from the same weights: the loss within rtol 1e-5,
 each gradient and each parameter after one Adam step within 1e-4 of its
-largest magnitude. On the CPU no kernel launches; on the card (`cuda`
-tests) a step launches K7, K8 and K9 once each.
+largest magnitude. On the CPU no kernel launches; on the card a step
+launches K7, K8 and K9 once each (`test_torch_local_cuda.py`).
 """
 import numpy as np
 import pytest
@@ -26,10 +26,10 @@ import optax  # noqa: E402
 
 import neurite_tpu as ne  # noqa: E402
 from neurite_tpu.layers import local as jlocal  # noqa: E402
-import neurite_tpu_torch as nt  # noqa: E402
 from neurite_tpu_torch import convert, training  # noqa: E402
 from neurite_tpu_torch.layers import local  # noqa: E402
 from neurite_tpu_torch.ops import _build, lc_tap  # noqa: E402
+from test_torch_local_cuda import EncDecLC, _config3_batch, _tmse  # noqa: E402
 
 torch.set_num_threads(1)
 K0 = jax.random.PRNGKey(0)
@@ -300,26 +300,8 @@ class JaxEncDecLC(fnn.Module):
             param_dtype=self.param_dtype, name='lc')(u(x, training=training))
 
 
-def EncDecLC(size, dtype, param_dtype, device):
-    """The port's config #3 model, `nt.models.unet_lc`, at size^3:
-    attribute names follow the flax tree (`ne.models.unet` drops its name,
-    so flax calls the trunk UNet_0)."""
-    return nt.models.unet_lc(input_shape=(size,) * 3 + (1,), dtype=dtype,
-                             param_dtype=param_dtype, device=device)
-
-
 def _mse(yt, yp):
     return jnp.mean((yt - yp.astype(jnp.float32)) ** 2)
-
-
-def _tmse(yt, yp):
-    return torch.mean((yt - yp.float()) ** 2)
-
-
-def _config3_batch(size):
-    rng = np.random.default_rng(0)
-    return (rng.normal(size=(1, size, size, size, 1)).astype(np.float32),
-            rng.normal(size=(1, size, size, size, 1)).astype(np.float32))
 
 
 def _jax_params(jm, x):
@@ -413,26 +395,3 @@ def test_config3_bf16_step_loss_close():
         == torch.bfloat16
     assert np.all(np.isfinite(losses))
     np.testing.assert_allclose(losses[0], lj, rtol=1e-2)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-def test_cuda_step_launches_each_lc_kernel_once(cuda):
-    x, y = (torch.from_numpy(a).to(cuda) for a in _config3_batch(16))
-    tm = EncDecLC(16, torch.bfloat16, torch.bfloat16, cuda)
-    state = training.create_train_state(tm, training.adam(1e-4))
-    step = training.make_train_step(_tmse)
-    _build.launches.clear()
-    for _ in range(2):
-        state, m = step(state, (x, y))
-    torch.cuda.synchronize()
-    assert np.isfinite(float(m['loss']))
-    for name in ('lc_fwd', 'lc_dk', 'lc_dx'):
-        assert _build.launches[name] == 2, name
-    assert _build.launches['pool2_fwd'] == 4

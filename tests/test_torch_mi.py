@@ -4,8 +4,7 @@ numpy inputs: `utils.core.soft_quantize`, `ops.mi_histograms` on each route
 ('jnp' against JAX's jnp route, 'pallas' and 'plain' against JAX's Pallas
 route in interpret mode: values and gradients, the centers' included),
 `metrics.MutualInformation`, the rest of the metrics and losses, and
-`regularizers.soft_l0_wrap`. On the card (`cuda` tests) K10 must agree
-with the plain forward.
+`regularizers.soft_l0_wrap`. K10 on the card: `test_torch_mi_cuda.py`.
 """
 import functools
 
@@ -21,8 +20,9 @@ import neurite_tpu as ne  # noqa: E402
 from neurite_tpu import ops as jops  # noqa: E402
 from neurite_tpu.utils import core as jcore  # noqa: E402
 import neurite_tpu_torch as nt  # noqa: E402
-from neurite_tpu_torch.ops import _build, mi_hist, mi_hist_cuda  # noqa: E402
+from neurite_tpu_torch.ops import mi_hist_cuda  # noqa: E402
 from neurite_tpu_torch.utils import core  # noqa: E402
+from test_torch_mi_cuda import HIST_SHAPES, _hist_inputs  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -109,30 +109,6 @@ def test_soft_delta_logistic_and_soft_l0_match_jax():
 
 
 # ----------------------------------------------------------- mi_histograms
-HIST_SHAPES = {   # (bs, V, B, alpha, clip, input range), as
-    # tests/test_ops_kernels.py's Pallas checks use them
-    '2x1000_B16': (2, 1000, 16, 150., (-np.inf, np.inf), (0., 1.)),
-    '1x700_B8_clip': (1, 700, 8, 40., (0., 1.), (-1., 2.)),
-    # past one 64-bin chunk of K10: the reference takes any number of bins
-    '1x300_B65': (1, 300, 65, 1000., (-np.inf, np.inf), (0., 1.)),
-    # bins that K10's 4 x 4 pair tiles do not divide
-    '1x500_B5': (1, 500, 5, 12., (-np.inf, np.inf), (0., 1.)),
-    '2x400_B17': (2, 400, 17, 160., (-np.inf, np.inf), (0., 1.)),
-}
-
-
-def _hist_inputs(case):
-    bs, n, nb, alpha, clip, (lo, hi) = HIST_SHAPES[case]
-    rng = np.random.default_rng(2)
-    x = rng.uniform(lo, hi, size=(bs, n)).astype(np.float32)
-    y = rng.uniform(lo, hi, size=(bs, n)).astype(np.float32)
-    cx = np.linspace(0., 1., nb, dtype=np.float32)
-    cy = np.linspace(-.1, 1.1, nb, dtype=np.float32)
-    w = [rng.normal(size=s).astype(np.float32)
-         for s in ((bs, nb, nb), (bs, nb), (bs, nb))]
-    return x, y, cx, cy, alpha, clip, w
-
-
 @functools.cache
 def _jax_hist(case, impl):
     """JAX's histograms and their gradients, one jitted program a case and
@@ -446,69 +422,3 @@ def test_label_weight_length_errors():
                                                                    _t(p))
     with pytest.raises(ValueError, match='Label weights must be of len 4'):
         nt.metrics.MeanSquaredErrorProb(label_weights=[1., 2.])(_t(t), _t(p))
-
-
-# ---------------------------------------------------------------- the card
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', sorted(HIST_SHAPES))
-def test_mi_kernel_matches_plain_on_card(cuda, case):
-    x, y, cx, cy, alpha, (lo, hi), _ = _hist_inputs(case)
-    xt, yt, ct, dt = (torch.from_numpy(a).to(cuda) for a in (x, y, cx, cy))
-    _build.launches.clear()
-    k = mi_hist_cuda.mi_histograms_cuda(xt, yt, ct, dt, alpha, lo, hi)
-    k2 = mi_hist_cuda.mi_histograms_cuda(xt, yt, ct, dt, alpha, lo, hi)
-    p = mi_hist._mi_histograms_plain(xt, yt, ct, dt, alpha, lo, hi)
-    torch.cuda.synchronize()
-    assert _build.launches['mi_hist'] == 2
-    assert _build.launches['mi_hist_tiled'] == 2
-    for a, b, a2 in zip(k, p, k2):
-        # 1e-5 of the largest magnitude: another summation order
-        torch.testing.assert_close(a, b, rtol=0,
-                                   atol=1e-5 * float(b.abs().max()))
-        assert torch.equal(a, a2)   # no atomics: the same bits
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('nb_bins', [65, 128, 1024])
-def test_mi_kernel_many_bins_on_card(cuda, nb_bins):
-    """K10 past one 64-bin chunk (2 or 16 chunks each way; at 1024 bins
-    with fewer blocks, so the scratch stays bounded) at [1, 32^3]."""
-    rng = np.random.default_rng(nb_bins)
-    x, y = (torch.from_numpy(rng.uniform(size=(1, 32 ** 3)).astype(
-        np.float32)).to(cuda) for _ in range(2))
-    c = torch.linspace(0., 1., nb_bins, device=cuda)
-    alpha = nt.metrics.MutualInformation(nb_bins=nb_bins).soft_bin_alpha
-    k = mi_hist_cuda.mi_histograms_cuda(x, y, c, c, alpha)
-    k2 = mi_hist_cuda.mi_histograms_cuda(x, y, c, c, alpha)
-    p = mi_hist._mi_histograms_plain(x, y, c, c, alpha)
-    torch.cuda.synchronize()
-    for a, b, a2 in zip(k, p, k2):
-        torch.testing.assert_close(a, b, rtol=0,
-                                   atol=1e-5 * float(b.abs().max()))
-        assert torch.equal(a, a2)
-
-
-@pytest.mark.cuda
-def test_mi_kernel_reads_a_tensor_alpha_on_card(cuda):
-    """A CUDA 0-d alpha is read by the kernel: no host sync, and the bits
-    of the float-alpha call."""
-    x, y, cx, cy, alpha, _, _ = _hist_inputs('2x1000_B16')
-    xt, yt, ct, dt = (torch.from_numpy(a).to(cuda) for a in (x, y, cx, cy))
-    at = torch.tensor(alpha, dtype=torch.float32, device=cuda)
-    want = mi_hist_cuda.mi_histograms_cuda(xt, yt, ct, dt, alpha)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        got = mi_hist_cuda.mi_histograms_cuda(xt, yt, ct, dt, at)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)

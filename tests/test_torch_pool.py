@@ -17,20 +17,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from neurite_tpu.ops.pool import _max_pool_tiled as jax_max_pool_tiled  # noqa: E402
-from neurite_tpu_torch.ops import _build, max_pool, pool, pool_cuda  # noqa: E402
+from neurite_tpu_torch.ops import max_pool, pool, pool_cuda  # noqa: E402
+from test_torch_pool_cuda import _quantized  # noqa: E402
 
 torch.set_num_threads(1)
 
 DTYPES = {'float32': (torch.float32, jnp.float32),
           'bfloat16': (torch.bfloat16, jnp.bfloat16)}
-
-
-def _quantized(seed, shape, nan_at=None):
-    """Halves (exact in bf16, many ties; +0. removes -0.), one optional NaN."""
-    x = np.round(np.random.default_rng(seed).normal(size=shape) * 2) / 2 + 0.
-    if nan_at is not None:
-        x[nan_at] = np.nan
-    return x.astype(np.float32)
 
 
 def _grad(seed, shape):
@@ -199,48 +192,3 @@ def test_pool_plan_folds_rows_and_widens_offsets():
     assert p.block == (256, 1) and not p.wide
     p = pool_cuda.plan((4, 512, 256, 256, 16), F32, (0, 0))
     assert p.wide and p.grid[1] == pool_cuda.MAX_GRID_Y
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-def _misaligned(x):
-    """x copied into a contiguous view whose data pointer is one element
-    past a 16-byte boundary."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    v = buf[1:].view(x.shape)
-    v.copy_(x)
-    return v
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('dt', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('shape,body', [
-    ((2, 8, 6, 4, 5), 'scalar'),          # C = 5: no 16-byte vectors
-    ((2, 8, 6, 4, 16), 'vec'),
-    ((1, 6, 4, 10, 24), 'vec'),           # a row of 15 or 30 vectors
-    ((2, 8, 6, 4, 16), 'misaligned'),     # the scalar body on a view
-])
-def test_pool_kernels_match_plain_on_card(cuda, dt, shape, body):
-    x = torch.from_numpy(_quantized(7, shape, (1, 2, 3, 1, 4)))
-    x = x.to(device=cuda, dtype=DTYPES[dt][0])
-    if body == 'misaligned':
-        x = _misaligned(x)
-    out = (shape[0], shape[1] // 2, shape[2] // 2, shape[3] // 2, shape[4])
-    g = torch.randn(out, device=cuda).to(x.dtype)
-    before = _build.launches['pool2_fwd_vec']
-    yk, yp = pool_cuda.pool2_fwd(x), pool._max_pool_tiled_fwd(x, (2, 2, 2))
-    assert _build.launches['pool2_fwd_vec'] == before + (body == 'vec')
-    dk = pool_cuda.pool2_bwd(x, g)
-    dp = pool._max_pool_tiled_bwd(x, yp, g, (2, 2, 2))
-    torch.cuda.synchronize()
-    assert torch.equal(torch.isnan(yk), torch.isnan(yp))
-    keep = ~torch.isnan(yp)
-    ity = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[x.dtype]
-    # the raw bits of the winning tap
-    assert torch.equal(yk[keep].view(ity), yp[keep].view(ity))
-    assert torch.equal(dk, dp)

@@ -8,8 +8,7 @@ must match the Pallas warps v1 and v2 (interpret mode) inside their window
 contracts; and its gradients (dvol, dloc) must match `jax.vjp` of
 `core.interpn`. `warp_cuda.plan` must pick K4's 'vec' body (32-bit) at
 the paths' shapes and its 'scalar' body past 32 bits (reckoned from
-shapes). On the card, K4 must equal the plain version, and its two bodies
-must give the same bits.
+shapes). K4 on the card: `test_torch_warp_cuda.py`.
 """
 import numpy as np
 import pytest
@@ -23,37 +22,9 @@ from neurite_tpu.ops import pallas_warp  # noqa: E402
 from neurite_tpu.utils import core as jcore  # noqa: E402
 import neurite_tpu_torch as nt  # noqa: E402
 from neurite_tpu_torch.ops import _build, warp, warp_cuda  # noqa: E402
+from test_torch_warp_cuda import SHAPE, _grid, _loc, _vol  # noqa: E402
 
 torch.set_num_threads(1)
-
-SHAPE = (6, 7, 8)
-
-
-def _grid(shape):
-    return np.stack(np.meshgrid(*[np.arange(s) for s in shape],
-                                indexing='ij'), -1).astype(np.float32)
-
-
-def _loc(seed, shape=SHAPE, spread=3.):
-    """Grid + uniform displacement, with points outside the volume, on its
-    upper edge (exactly the last index) and at half-integer ties."""
-    rng = np.random.default_rng(seed)
-    loc = _grid(shape) + rng.uniform(-spread, spread, size=(*shape, 3))
-    loc = loc.astype(np.float32)
-    top = np.asarray(shape, np.float32) - 1
-    loc[0, 0, 0] = top                          # the last voxel
-    loc[0, 0, 1] = [top[0], 2.25, top[2]]       # on two upper faces
-    loc[0, 1, 0] = [2.5, 3.5, 0.5]              # ties: 2, 4, 0 (half even)
-    loc[0, 1, 1] = [1.5, -0.5, 4.5]             # ties, one outside
-    loc[1, 0, 0] = [-4., 2., 9.]                # outside on two axes
-    loc[1, 0, 1] = [top[0] + 1e-3, 1., 1.]      # just beyond the edge
-    return loc
-
-
-def _vol(seed, shape, channels):
-    rng = np.random.default_rng(seed)
-    extra = () if channels is None else (channels,)
-    return rng.normal(size=(*shape, *extra)).astype(np.float32)
 
 
 @pytest.mark.parametrize('channels', [None, 1, 3])
@@ -240,56 +211,3 @@ def test_plan_takes_any_alignment():
     shape = (1, 6, 7, 8, 3)
     off = torch.empty(int(np.prod(shape)) + 1)[1:].view(shape)
     assert warp_cuda.plan(off, off) == 'vec'
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('method', ['linear', 'nearest'])
-def test_kernel_matches_plain_on_card(cuda, method):
-    vol = torch.from_numpy(_vol(16, (2, 9, 10, 11), 3)).to(cuda)
-    loc = torch.from_numpy(np.stack([_loc(17, (9, 10, 11)),
-                                     _loc(18, (9, 10, 11))])).to(cuda)
-    before = _build.launches['interpn']
-    k = warp.interpn_batch(vol, loc, method, 0.)
-    p = nt.utils.core.interpn_plain(vol, loc, method, 0., batched=True)
-    torch.cuda.synchronize()
-    assert _build.launches['interpn'] == before + 1
-    assert torch.equal(k, p)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('channels', [1, 3, 5])
-@pytest.mark.parametrize('fill', [None, 0.])
-@pytest.mark.parametrize('method', ['linear', 'nearest'])
-def test_vec_body_matches_scalar_and_plain_on_card(cuda, method, fill,
-                                                   channels):
-    """K4's 'vec' body against its 'scalar' body, on a misaligned view of
-    loc, and against the plain version, with points outside the volume, on
-    its upper edge and at half-integer ties: the same bits (linear against
-    the plain version within 1e-5)."""
-    shape = (9, 10, 11)   # P odd: a ragged last block
-    vol = torch.from_numpy(_vol(19, (2, *shape), channels)).to(cuda)
-    loc = torch.from_numpy(np.stack([_loc(20, shape),
-                                     _loc(21, shape)])).to(cuda)
-    bad = torch.empty(loc.numel() + 1, device=cuda)[1:].view(loc.shape)
-    bad.copy_(loc)
-    _build.launches.clear()
-    k = warp_cuda.interpn3d(vol, loc, method, fill)
-    m = warp_cuda.interpn3d(vol, bad, method, fill)
-    assert _build.launches['interpn_vec'] == 2
-    s = torch.empty_like(k)
-    warp_cuda._launch(vol, loc, s, method, fill, 'scalar')
-    p = nt.utils.core.interpn_plain(vol, loc, method, fill, batched=True)
-    torch.cuda.synchronize()
-    for o in (m, s):
-        assert torch.equal(k.view(torch.int32), o.view(torch.int32))
-    if method == 'nearest':
-        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
-    else:
-        torch.testing.assert_close(k, p, rtol=0, atol=1e-5)
